@@ -6,8 +6,8 @@
 Phases, in order; any failure raises and the script exits non-zero:
   1. device: needs CUDA; prints `nvidia-smi --query-gpu=name,power.limit`
   2. build: compiles every kernel from pointnerf_slam_torch/ops/csrc with
-     nvcc for sm_90a, in parallel; prints the seconds and ptxas' register
-     and spill lines
+     nvcc for sm_90a, one process per source, all started together;
+     prints the seconds and ptxas' register and spill lines
   3. kernels, random cell: at the main path's shapes (5000 rays, 32+12
      samples, 32 regulation samples, 256-wide MLP) and a random decoder,
      each kernel is held against its plain PyTorch version on the same
@@ -15,20 +15,36 @@ Phases, in order; any failure raises and the script exits non-zero:
        p1_sigma          vs p1_sigma_reference
        fused_vg mapper   (colour, w_beyond 1, with and without ray grads)
        fused_vg tracker  vs fused_vg_reference
+       megakernel K3/K4  vs fused_render_reference, at the tracker shape
+                         (5000 rays, no regulation) and the mapper shape
+                         (4998 rays, with regulation)
   4. engine: the bench workload (680x1200, 6-frame window) through the
      port's tracker (50 iterations, K=5) and fused-outer mapper (3 x 100,
      K=4, no BA); ms per iteration; losses finite and falling
-  5. system: PointNeRFSLAM on configs/Synthetic/room_bench.yaml at full
+  5. system, sensor depth: PointNeRFSLAM on room_bench.yaml at full
      680x1200 width with the flagship schedule (fused_outer, K=4/5) for
      frames 0..5, colour refine off; mapping losses fall on every mapped
      frame, tracking lowers the summed loss, camera errors stay small
-  6. the kernel launch counts of phases 4-5 (each must be > 0)
-  7. tracking check: the tracker pulls frame 0 back from a 2 cm shift on
+  6. system, weak depth: room_bench_weak.yaml (the flagship) at 680x1200,
+     frames 0..20 as configured (iters_first 1500, colour refine on the
+     last frame): the sparse front-end bootstraps by frame 15 (its 2 deg
+     parallax gate needs ~15 frames of this orbit), continuous tracked
+     frames follow, pseudo-depth agrees with the sensor depth the run never
+     sees, mapping losses fall, poses stay finite and near gt
+  7. system, dynamic: configs/Synthetic/ablations/box_ba_dynamic.yaml, all
+     40 frames (weak depth, handle_dynamic, BA): the tracker runs K3/K4,
+     the mapper K1 with ray gradients (BA); tracking lowers the summed loss
+  8. the launch counts of phases 4-7, each phase counted from 0 (every
+     kernel must have launched on the main path)
+  9. tracking check: the tracker pulls frame 0 back from a 2 cm shift on
      the map that phase 5 built
-  8. kernels, map cell: the kernels against their plain versions again,
+ 10. kernels, map cell: the kernels against their plain versions again,
      on that map's decoder and on rays of frames 0 and 5 as the tracker
      and the mapper draw them (losses at their real scale)
-  9. one `{"kernels": [...]}` line, then the device line last.
+ 11. kernels, dynamic cell: K2, K3 and K4 again on the decoder phase 7
+     mapped, at its tracker's shape (1500 rays, 24+8 samples, no
+     regulation, pseudo-depth pixels of its last tracked frame)
+ 12. one `{"kernels": [...]}` line, then the device line last.
 Nothing here imports JAX or the JAX package.
 """
 
@@ -59,6 +75,22 @@ SIG_MAX = 2e-2              # p1 sigma: x max|s| inside the AABB
 VAR_ORDINARY = 1e-4         # tracker rays with var >= this weigh <= 100
 SHIFT_M, SHIFT_BACK_M = 0.02, 2e-3   # tracking check: shift, error after
 CAM_T_MAX = 0.05            # system: translation error of tracked frames
+# K3/K4: the backward is judged by a loss linear in the outputs with fixed
+# random cotangents, the JAX reference's own check (tests/test_megakernel.py)
+MK_RAY_COS, MK_RAY_RATIO = 0.999, (0.995, 1.005)
+MK_W_COS, MK_W_RATIO = 0.999, (0.99, 1.01)
+# K3's own importance samples vs the plain version's end to end: share of
+# rays moved by more than Z2_REL of the ray's pass-1 spacing
+Z2_REL, Z2_SHARE = 1e-2, 0.05
+# K3's middle on K2's sigma: the CDF values of the two versions differ by
+# float32 summation order in the weights and the CDF (up to 1.90e-5 read
+# on the card, PERF.md); a floor of 1e-6 instead of + 1e-5 moves them by
+# 0.05-0.7 (tests/test_torch_megakernel.py)
+MID_ETA = 2e-5
+PSEUDO_REL = 0.15           # weak: median relative pseudo-depth error
+WEAK_FRAMES, WEAK_BOOT_BY = 21, 15   # weak: frames run, bootstrap frame
+WEAK_T_MAX = 0.05           # weak: translation error of tracked frames
+DYN_T_MAX = 1.0             # dynamic: max translation error, any frame
 
 
 def fail(msg: str) -> None:
@@ -106,11 +138,12 @@ def rays_batch(torch, gen, n, cams, depth_hi=3.0):
     return ro.contiguous(), rd.contiguous(), gt_d, gt_c
 
 
-def check_p1(torch, F, pw, rays, bound, cell):
-    """p1_sigma against its plain version. Returns (max abs err, sigma
-    noise: the largest difference seen at any point)."""
-    sk = F.p1_sigma(pw, rays, bound, 32)
-    sp = F.p1_sigma_reference(pw, rays, bound, 32)
+def check_p1(torch, F, pw, rays, bound, cell, S1=32):
+    """p1_sigma against its plain version at S1 samples per ray. Returns
+    the max abs err (the sigma noise: the largest difference seen at any
+    point)."""
+    sk = F.p1_sigma(pw, rays, bound, S1)
+    sp = F.p1_sigma_reference(pw, rays, bound, S1)
     torch.cuda.synchronize()
     inside = sp != 100.0
     err = (sk - sp).abs()
@@ -147,6 +180,38 @@ def last_step(torch, F, params, ro, rd, z2, bound, sig_noise):
     return mask, T, z2[:, -1], raw[:, -1, :3].abs().amax(1)
 
 
+def check_rays(torch, name, outs_k, outs_p, params, ro, rd, z2, bound,
+               sig_noise):
+    """Per-ray depth and colour of a kernel against its plain version at
+    the same samples z2: within 1e-3 on >= 95% of rays, within 2e-2 on
+    every ray off the last-interval step, and at the step within the last
+    weight's jump + 2e-2. Returns (step mask, max error off the step)."""
+    from pointnerf_slam_torch.ops import fused_vg as F
+    step, T, z_last, c_last = last_step(torch, F, params, ro, rd, z2, bound,
+                                        sig_noise)
+    worst = 0.0
+    for a, b, nm, jump in ((outs_k[0], outs_p[0], "depth", T * z_last),
+                           (outs_k[1], outs_p[1], "color", T * c_last)):
+        d = (a - b).abs().reshape(a.shape[0], -1).amax(1)
+        beyond = d > OUT_ATOL
+        frac = float(beyond.float().mean())
+        off = d[~step]
+        off_max = float(off.max()) if off.numel() else 0.0
+        worst = max(worst, off_max)
+        over = d[step] - jump[step]
+        step_over = float(over.max()) if over.numel() else 0.0
+        print(f"kernels: {name}: {nm} {frac:.4f} of rays beyond "
+              f"{OUT_ATOL} (max {float(d.max()):.3e}); {int(step.sum())} "
+              f"rays at the last step ({int((beyond & step).sum())} of them "
+              f"beyond); max off the step {off_max:.3e}; at the step, max "
+              f"err - jump {step_over:.3e}", flush=True)
+        if frac > OUT_SHARE or off_max > OUT_MAX or step_over > OUT_MAX:
+            fail(f"{name}: {nm}: {frac:.4f} of rays beyond {OUT_ATOL}, max "
+                 f"off the last step {off_max}, at the step err - jump "
+                 f"{step_over}")
+    return step, worst
+
+
 def check_vg(name, out_k, out_p, spec, inputs, params, sig_noise):
     """Kernel vs plain version of fused_vg, tolerances as at the top of
     the file. Returns the largest abs error of the gradients the variant
@@ -167,26 +232,8 @@ def check_vg(name, out_k, out_p, spec, inputs, params, sig_noise):
             if err > GRAD_ATOL * float(b.abs().max()) + 1e-8:
                 fail(f"{name}: grad {k} max err {err} vs scale "
                      f"{float(b.abs().max())}")
-    step, T, z_last, c_last = last_step(torch, F, params, ro, rd, z2, bound,
-                                        sig_noise)
-    for a, b, nm, jump in ((ak[0], ap[0], "depth", T * z_last),
-                           (ak[2], ap[2], "color", T * c_last)):
-        d = (a - b).abs().reshape(a.shape[0], -1).amax(1)
-        beyond = d > OUT_ATOL
-        frac = float(beyond.float().mean())
-        off = d[~step]
-        off_max = float(off.max()) if off.numel() else 0.0
-        over = d[step] - jump[step]
-        step_over = float(over.max()) if over.numel() else 0.0
-        print(f"kernels: {name}: {nm} {frac:.4f} of rays beyond "
-              f"{OUT_ATOL} (max {float(d.max()):.3e}); {int(step.sum())} "
-              f"rays at the last step ({int((beyond & step).sum())} of them "
-              f"beyond); max off the step {off_max:.3e}; at the step, max "
-              f"err - jump {step_over:.3e}", flush=True)
-        if frac > OUT_SHARE or off_max > OUT_MAX or step_over > OUT_MAX:
-            fail(f"{name}: {nm}: {frac:.4f} of rays beyond {OUT_ATOL}, max "
-                 f"off the last step {off_max}, at the step err - jump "
-                 f"{step_over}")
+    step = check_rays(torch, name, (ak[0], ak[2]), (ap[0], ap[2]), params,
+                      ro, rd, z2, bound, sig_noise)[0]
     if spec.mode == "tracker":
         low = float((ap[1] < VAR_ORDINARY).float().mean())
         print(f"kernels: {name}: {low:.4f} of rays with var < "
@@ -349,6 +396,288 @@ def phase_kernels(torch, report):
         print(f"kernels: {name} {ms:.3f} ms (plain {pms:.3f} ms, bound "
               f"{bms:.4f} ms by {by})", flush=True)
 
+    # K3/K4
+    phase_kernels_mk(torch, report, dec, "random",
+                     lambda n: rays_batch(torch, gen, n, cams)[:3], bound,
+                     2 * p1_err)
+
+
+def cos_ratio(a, b):
+    a, b = a.reshape(-1).double(), b.reshape(-1).double()
+    return (float(a @ b / (a.norm() * b.norm() + 1e-30)),
+            float(a.norm() / (b.norm() + 1e-30)))
+
+
+def middle_candidates(torch, s1, rays, S1, SI):
+    """The plain middle (weights, inverse CDF with w + 1e-5 and the denom
+    switch, as core.sampling.sample_pdf) on the given pass-1 sigma, with
+    every alternative that float32 rounding of the CDF allows: where a u
+    lies within MID_ETA of a CDF value the count of cdf <= u may differ by
+    one, and where a denom lies within 2 MID_ETA of 1e-5 the switch may
+    flip (at u = 1 the last CDF value is 1 up to rounding, so a ray whose
+    last interior bin is empty has two answers there). Returns z1 (N, S1),
+    and per importance sample the candidates z (N, SI, C), their
+    tolerances (N, SI, C) and which are allowed (N, SI, C)."""
+    from pointnerf_slam_torch.ops.render_math import weights, z_pass1
+    z1 = z_pass1(rays[:, 6:7], rays[:, 7:8], S1)
+    dn = torch.sqrt(torch.sum(rays[:, 3:6] * rays[:, 3:6], 1, keepdim=True))
+    w = weights(s1, z1, dn)[:, 1:-1] + 1e-5
+    cdf = torch.cat([torch.zeros_like(w[:, :1]),
+                     torch.cumsum(w / w.sum(1, keepdim=True), 1)], 1)
+    bins = 0.5 * (z1[:, 1:] + z1[:, :-1])
+    M = cdf.shape[1]
+    u = torch.linspace(0.0, 1.0, SI, device=s1.device).expand(
+        s1.shape[0], SI).contiguous()
+    i0 = torch.searchsorted(cdf, u, right=True)
+    zs, tols, oks = [], [], []
+    for di in (-1, 0, 1):
+        inds = (i0 + di).clamp(1, M)
+        if di == -1:        # cdf[i0 - 1] <= u, within rounding of u
+            ok_i = (i0 >= 2) & (cdf.gather(1, (i0 - 1).clamp(0, M - 1))
+                                >= u - MID_ETA)
+        elif di == 1:       # cdf[i0] > u, within rounding of u
+            ok_i = (i0 < M) & (cdf.gather(1, i0.clamp(max=M - 1))
+                               <= u + MID_ETA)
+        else:
+            ok_i = torch.ones_like(u, dtype=torch.bool)
+        below, above = inds - 1, inds.clamp(max=M - 1)
+        cb, ca = cdf.gather(1, below), cdf.gather(1, above)
+        bb, ba = bins.gather(1, below), bins.gather(1, above)
+        denom = ca - cb
+        switch = denom < 1e-5
+        edge = (denom - 1e-5).abs() <= 2 * MID_ETA
+        for flip in (False, True):
+            sw = switch ^ flip
+            d = torch.where(sw, torch.ones_like(denom), denom)
+            pos = d > 0             # a flip to a zero denom is no candidate
+            d = torch.where(pos, d, torch.ones_like(d))
+            z = bb + (u - cb) / d * (ba - bb)
+            zs.append(z)
+            tols.append((ba - bb).abs() * 3 * MID_ETA / d
+                        + 4 * 1.2e-7 * z.abs())
+            oks.append(ok_i & pos & (edge if flip else torch.ones_like(edge)))
+    return z1, torch.stack(zs, 2), torch.stack(tols, 2), torch.stack(oks, 2)
+
+
+def check_middle(torch, tag, z2, s1, rays, S1, SI):
+    """K3's middle against the plain one on the same pass-1 sigma (K2's
+    output: the device code K3 runs for pass 1): z2 must hold z1 and, in
+    order, SI importance samples each within its tolerance (the CDF's
+    rounding, MID_ETA, through 1 / denom, plus 4 ulp) of an allowed plain
+    candidate, on every sample of every ray. Returns (largest CDF error
+    the samples imply, share of samples that took a non-primary
+    candidate)."""
+    n, S2 = z2.shape
+    z1, cz, ct, cok = middle_candidates(torch, s1, rays, S1, SI)
+    if not bool((z2[:, 1:] >= z2[:, :-1]).all()):
+        fail(f"{tag}: z2 not sorted")
+    # take out the S1 pass-1 depths, each the nearest entry not yet taken
+    # (z1 may hold near-equal values where far is close to near)
+    taken = torch.zeros_like(z2, dtype=torch.bool)
+    far_off = torch.zeros(n, device=z2.device)
+    for s in range(S1):
+        d = (z2 - z1[:, s:s + 1]).abs().masked_fill(taken, float("inf"))
+        dmin, j = d.min(1)
+        taken[torch.arange(n, device=z2.device), j] = True
+        far_off = torch.maximum(far_off, dmin / (2.4e-7 * z1[:, s].abs()
+                                                 + 1e-30))
+    if not bool((far_off <= 1.0).all()):
+        fail(f"{tag}: z2 does not hold the {S1} pass-1 depths (ray "
+             f"{int(far_off.argmax())})")
+    zk = z2[~taken].reshape(n, SI)
+    # the samples in ascending order of the primary candidate (the
+    # inverse CDF runs backwards on rays whose far lies below near)
+    order = cz[..., 2].argsort(dim=1, stable=True)[..., None].expand_as(cz)
+    cz, ct, cok = cz.gather(1, order), ct.gather(1, order), cok.gather(
+        1, order)
+    dz = (zk[..., None] - cz).abs()
+    within = (dz <= ct) & cok
+    good = within.any(2)
+    # the CDF error each deviation implies: dz = |ba - bb| / d * err
+    ulp = 4 * 1.2e-7 * cz.abs()
+    slope = (ct - ulp) / (3 * MID_ETA)
+    implied = torch.where(dz <= ulp, torch.zeros_like(dz),
+                          (dz - ulp) / slope.clamp(min=1e-30))
+    implied = torch.where(cok, implied, torch.full_like(dz, float("inf")))
+    worst = float(implied.amin(2).max())
+    alt = float((good & ~within[..., 2]).float().mean())   # 2: primary
+    print(f"kernels: {tag}: middle on K2's sigma: {int((~good).sum())} of "
+          f"{good.numel()} importance samples off every plain candidate; "
+          f"largest implied CDF error {worst:.3e} (bound "
+          f"{3 * MID_ETA:.1e}); {alt:.5f} of samples on a rounding "
+          f"alternative", flush=True)
+    if not bool(good.all()):
+        r = int((~good).any(1).nonzero()[0, 0])
+        fail(f"{tag}: middle: ray {r} samples {zk[r].tolist()} vs plain "
+             f"{cz[r, :, 2].tolist()}")
+    return worst, alt
+
+
+def check_render(torch, cell, dec, ro, rd, gt_d, t_reg, bound, with_reg,
+                 sig_noise, timing=False, S1=32, SI=12):
+    """K3 and K4 against fused_render_reference's pieces on the same
+    inputs. K3's middle against the plain middle on K3's own pass-1 sigma
+    (check_middle: every sample of every ray); K3's importance samples z2
+    against the plain version's end to end (<= 5% of rays moved by > 1% of
+    their pass-1 spacing: the inverse CDF follows the noisy pass-1 sigma
+    of either version); K3's
+    depth and colour against the plain pass 2 at K3's own z2 with
+    check_rays' bounds, var within 1e-3 (1 + var) on >= 95% of rays,
+    sigma_reg as p1 sigma; K4's gradients of a loss linear in the outputs
+    with fixed random cotangents (the same for both) against autograd of
+    the plain pass 2 at the same z2: ray gradients (off the last step) and
+    weight gradients by cosine and norm ratio, the ray gradients once with
+    and once without weight gradients (the tracker's launch), which must
+    agree. Returns ({name: report} with the timings, max output error, max
+    gradient error)."""
+    from pointnerf_slam_torch.ops import fused_vg as F
+    from pointnerf_slam_torch.ops import megakernel as MK
+    from pointnerf_slam_torch.render.renderer import RenderConfig
+    n = ro.shape[0]
+    tag = f"megakernel[{cell}, {n} rays, {S1}+{SI}, reg {with_reg}]"
+    params = {k: v.detach() for k, v in F.params_of(dec).items()}
+    pw = F.pack_weights(params)
+    dep, var, col, sr, z2, saved = MK.k3_forward(pw, ro, rd, gt_d, t_reg,
+                                                 bound, S1, SI, with_reg)
+    check_middle(torch, tag, z2, F.p1_sigma(pw, saved[0], bound, S1),
+                 saved[0], S1, SI)
+    z2p = MK.plain_z2(params, ro, rd, gt_d, bound, S1, SI)
+    dz = (z2 - z2p).abs().amax(1)
+    rays = saved[0]
+    rel = dz / ((rays[:, 7] - 0.01 * rays[:, 6]).abs() / (S1 - 1) + 1e-30)
+    zshare = float((rel > Z2_REL).float().mean())
+    s5, s_abs = (float((rel > 0.05).float().mean()),
+                 float((dz > 1e-3).float().mean()))
+    print(f"kernels: {tag}: z2 end to end: {zshare:.4f} of rays moved by "
+          f"> {Z2_REL} of their pass-1 spacing ({s5:.4f} by > 0.05, "
+          f"{s_abs:.4f} by > 1e-3 m; max {float(dz.max()):.3e} = "
+          f"{float(rel.max()):.3e} spacings)", flush=True)
+    if not torch.isfinite(z2).all() or zshare > Z2_SHARE:
+        fail(f"{tag}: z2 of {zshare} of rays off the plain version's")
+    with torch.no_grad():
+        pd, pv, pc, ps = MK.render_at(params, ro, rd, gt_d, t_reg, bound, z2,
+                                      with_reg)
+    step, err = check_rays(torch, tag, (dep, col), (pd, pc), params, ro, rd,
+                           z2, bound, sig_noise)
+    vfrac = float(((var - pv).abs() > OUT_ATOL * (1 + pv.abs()))[~step]
+                  .float().mean())
+    print(f"kernels: {tag}: var {vfrac:.4f} of rays off the step beyond "
+          f"{OUT_ATOL}(1+var)", flush=True)
+    if vfrac > OUT_SHARE:
+        fail(f"{tag}: var beyond on {vfrac} of rays")
+    if with_reg:
+        inside = ps != 100.0
+        se = (sr - ps).abs()
+        scale = float(ps[inside].abs().max())
+        sfrac = float((se > SIG_ATOL * (1 + ps.abs())).float().mean())
+        print(f"kernels: {tag}: sigma_reg max err {float(se.max()):.3e} "
+              f"(max|s| {scale:.3e}), {sfrac:.5f} beyond", flush=True)
+        if float(se.max()) > SIG_MAX * scale or sfrac > SIG_SHARE:
+            fail(f"{tag}: sigma_reg err {float(se.max())}, {sfrac} beyond")
+    else:
+        assert float(sr.abs().max()) == 0.0
+
+    gen = torch.Generator(device=ro.device).manual_seed(11)
+    cot = [torch.randn(n, generator=gen, device=ro.device),
+           torch.randn(n, generator=gen, device=ro.device),
+           torch.randn(n, 3, generator=gen, device=ro.device),
+           torch.randn(n, t_reg.shape[1], generator=gen, device=ro.device)]
+    if not with_reg:
+        cot[3] = torch.zeros_like(cot[3])
+
+    def lin(outs):
+        return sum((o * c).sum() for o, c in zip(outs, cot))
+
+    render = MK.make_fused_render(RenderConfig(N_samples=S1,
+                                               N_importance=SI),
+                                  with_reg=with_reg)
+    grads = {}
+    for pg in (False, True):
+        pk = {k: v.clone().requires_grad_(pg) for k, v in params.items()}
+        o_, d_ = ro.clone().requires_grad_(True), rd.clone().requires_grad_(
+            True)
+        outs = render(pk, o_, d_, gt_d, t_reg, bound)
+        wrt = [o_, d_] + ([pk[k] for k in F.PARAM_NAMES] if pg else [])
+        grads[pg] = torch.autograd.grad(lin(outs), wrt)
+    pp = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    o_, d_ = ro.clone().requires_grad_(True), rd.clone().requires_grad_(True)
+    gp = torch.autograd.grad(
+        lin(MK.render_at(pp, o_, d_, gt_d, t_reg, bound, z2, with_reg)),
+        [o_, d_] + [pp[k] for k in F.PARAM_NAMES])
+    gerr = 0.0
+    for i, nm in enumerate(("rays_o", "rays_d")):
+        a, a0, b = grads[True][i], grads[False][i], gp[i]
+        same = float((a - a0).abs().max()) <= 1e-6 * float(a.abs().max())
+        cos, ratio = cos_ratio(a[~step], b[~step])
+        e = float((a - b)[~step].abs().max())
+        gerr = max(gerr, e)
+        print(f"kernels: {tag}: {nm} off the step cos {cos:.6f} ratio "
+              f"{ratio:.5f} max err {e:.3e} = "
+              f"{e / (float(b.abs().max()) + 1e-30):.3e} max|g|; without "
+              f"weight gradients the same: {same}", flush=True)
+        if not (same and cos > MK_RAY_COS
+                and MK_RAY_RATIO[0] < ratio < MK_RAY_RATIO[1]):
+            fail(f"{tag}: {nm} cos {cos} ratio {ratio} same {same}")
+    for k, a, b in zip(F.PARAM_NAMES, grads[True][2:], gp[2:]):
+        cos, ratio = cos_ratio(a, b)
+        if not (cos > MK_W_COS and MK_W_RATIO[0] < ratio < MK_W_RATIO[1]):
+            fail(f"{tag}: grad {k} cos {cos} ratio {ratio}")
+    print(f"kernels: {tag}: weight gradients within cos {MK_W_COS}, ratio "
+          f"{MK_W_RATIO}", flush=True)
+    if not timing:
+        return {}, err, gerr
+    rays, treg, b6, SRk = saved
+    S2 = S1 + SI
+    ms3 = timed(lambda: MK.k3_forward(pw, ro, rd, gt_d, t_reg, bound, S1,
+                                      SI, with_reg))
+    with torch.no_grad():
+        pms3 = timed(lambda: MK.fused_render_reference(
+            params, ro, rd, gt_d, t_reg, bound, S1, SI, with_reg), 3)
+    ms4 = timed(lambda: MK.k4_backward(pw, rays, treg, z2, b6, *cot, S1,
+                                       SRk, False))
+    o_, d_ = ro.clone().requires_grad_(True), rd.clone().requires_grad_(True)
+    loss_p = lin(MK.render_at(params, o_, d_, gt_d, t_reg, bound, z2,
+                              with_reg))
+    pms4 = timed(lambda: torch.autograd.grad(loss_p, [o_, d_],
+                                             retain_graph=True), 3)
+    nw = sum(t.numel() * t.element_size() for t in [pw.Bp, *pw.Ws, *pw.bs])
+    SR = 32 if with_reg else 0
+    b3, by3 = bound_ms(n * (S1 + S2 + SR) * FLOP_FWD,
+                       n * (8 + SR) * 4 + nw + n * (5 + SR + S2) * 4)
+    # the tracker's launch: recompute forward and dh chain, no weight grads
+    b4, by4 = bound_ms(n * (S2 + SR) * FLOP_FWD * 2,
+                       n * (8 + S2 + 8 + SR) * 4 + nw + n * 8 * 4)
+    print(f"kernels: {tag}: K3 {ms3:.3f} ms (plain {pms3:.3f} ms, bound "
+          f"{b3:.4f} ms by {by3}); K4 {ms4:.3f} ms (plain backward "
+          f"{pms4:.3f} ms, bound {b4:.4f} ms by {by4})", flush=True)
+    src = "pointnerf_slam_torch/ops/csrc/megakernel.cu"
+    return {"megakernel_fwd": dict(
+        route="cuda", source=src,
+        replaces="pointnerf_slam_tpu/ops/megakernel.py:393",
+        max_abs_err=err, ms=ms3, plain_ms=pms3, bound_ms=b3, bound_by=by3,
+        library_ms=None), "megakernel_bwd": dict(
+        route="cuda", source=src,
+        replaces="pointnerf_slam_tpu/ops/megakernel.py:480",
+        max_abs_err=gerr, ms=ms4, plain_ms=pms4, bound_ms=b4, bound_by=by4,
+        library_ms=None)}, err, gerr
+
+
+def phase_kernels_mk(torch, report, dec, cell, rays_of, bound, sig_noise):
+    """K3/K4 at the tracker shape (5000 rays, no regulation; timed on the
+    random cell) and the mapper shape (4998 rays, with regulation).
+    rays_of(n) -> (rays_o, rays_d, gt_d) on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for n, with_reg in ((5000, False), (4998, True)):
+        ro, rd, gt_d = rays_of(n)
+        t_reg = torch.rand(n, 32, generator=gen, device="cuda")
+        rep, err, gerr = check_render(
+            torch, cell, dec, ro, rd, gt_d, t_reg, bound, with_reg,
+            sig_noise, timing=(cell == "random" and not with_reg))
+        report.update(rep)
+        for k, e in (("megakernel_fwd", err), ("megakernel_bwd", gerr)):
+            report[k]["max_abs_err"] = max(report[k]["max_abs_err"], e)
+
+
 
 def bench_engine(torch, dec, tracker_iters=50, map_inner=100):
     """The bench workload through the port's tracker and mapper."""
@@ -457,8 +786,137 @@ def phase_system(torch):
     return slam
 
 
+def pseudo_errors(slam):
+    """{frame: (pixels, median relative error)} of every pseudo-depth
+    against the sensor depth the weak run never reads."""
+    import numpy as np
+    out = {}
+    for i in sorted(slam.pseudo_depths):
+        p = slam.pseudo_depths[i].cpu().numpy()
+        _, _, d, _ = slam.frame_reader[i]
+        m = p > 0.01
+        if m.sum():
+            out[i] = (int(m.sum()),
+                      float(np.median(np.abs(p[m] - d[m]) / d[m])))
+    return out
+
+
+def run_system(torch, cfg, label, n_frames=None):
+    """Run the system; print each logged frame. Returns (slam, seconds,
+    {frame: launch counts after it})."""
+    from pointnerf_slam_torch.engine import PointNeRFSLAM
+    from pointnerf_slam_torch.ops import fused_vg as F
+    slam = PointNeRFSLAM(cfg, n_frames_cap=n_frames, device="cuda")
+    after = {}
+
+    def on_frame(s, idx):
+        if s.frame_log and s.frame_log[-1]["idx"] == idx:
+            print(f"{label}: " + frame_line(s.frame_log[-1]), flush=True)
+        after[idx] = dict(F.launches)
+
+    t0 = time.time()
+    slam.run(on_frame=on_frame)
+    torch.cuda.synchronize()
+    return slam, time.time() - t0, after
+
+
+def check_poses(slam, label, t_max, tracked_only):
+    import numpy as np
+    from pointnerf_slam_torch.run import trajectory_errors
+    est, gt = slam.estimate_c2w_list, slam.gt_c2w_list
+    if not np.isfinite(est).all():
+        fail(f"{label}: a pose is not finite")
+    err = np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=1)
+    idx = [r["idx"] for r in slam.frame_log if "t_err_m" in r] \
+        if tracked_only else list(range(len(err)))
+    worst = max(float(err[i]) for i in idx)
+    te = trajectory_errors(est, gt)
+    print(f"{label}: translation error max {worst * 1000:.2f} mm over "
+          f"{'tracked' if tracked_only else 'all'} frames (bound "
+          f"{t_max * 1000:.0f} mm); over all frames RMSE "
+          f"{te['rmse'] * 1000:.2f} mm, Horn-aligned (ATE) RMSE "
+          f"{te['ate_rmse'] * 1000:.2f} mm, max {te['ate_max'] * 1000:.2f} "
+          f"mm", flush=True)
+    if not worst <= t_max:
+        fail(f"{label}: translation error {worst} m")
+
+
+def phase_weak(torch):
+    """The flagship weak-depth config, frames 0..20 as configured."""
+    from pointnerf_slam_torch.io.config import load_config
+    cfg = load_config(os.path.join(HERE,
+                                   "configs/Synthetic/room_bench_weak.yaml"))
+    cfg["data"]["frame_cache_dir"] = ""
+    print(f"weak: room_bench_weak 680x1200, frames 0..{WEAK_FRAMES - 1}, "
+          f"iters_first {cfg['mapping']['iters_first']}, colour refine on "
+          f"the last frame; widths uncut", flush=True)
+    slam, secs, _ = run_system(torch, cfg, "weak", WEAK_FRAMES)
+    b = getattr(slam, "bootstrap_idx", None)
+    if b is None or b > WEAK_BOOT_BY:
+        fail(f"weak: no bootstrap by frame {WEAK_BOOT_BY} (at {b})")
+    cont = [r["idx"] for r in slam.frame_log
+            if "track_best" in r and r["idx"] > b]
+    if not cont:
+        fail("weak: no continuous tracked frame after the bootstrap")
+    errs = pseudo_errors(slam)
+    print(f"weak: bootstrap at frame {b}; continuous tracked frames {cont}; "
+          f"pseudo-depth (pixels, median rel err) {errs}", flush=True)
+    for i, (n, r) in errs.items():
+        if not r < PSEUDO_REL:
+            fail(f"weak: pseudo-depth of frame {i} median rel err {r}")
+    for rec in slam.frame_log:
+        if "map_losses" in rec and not falls(rec["map_losses"], 10):
+            fail(f"weak: mapping loss of frame {rec['idx']} did not fall")
+    check_poses(slam, "weak", WEAK_T_MAX, tracked_only=True)
+    t = slam.timings
+    print(f"weak: {slam.n_img} frames in {secs:.1f} s: front-end "
+          f"{t['frontend']:.1f} s, tracking {t['tracking']:.1f} s, mapping "
+          f"{t['mapping']:.1f} s", flush=True)
+
+
+def phase_dynamic(torch):
+    """box_ba_dynamic, all 40 frames: handle_dynamic tracking on K3/K4 and
+    bundle adjustment (K1 with ray gradients) once > 4 keyframes. Counts
+    the K1 mapper launches of the frames the system logged as bundle-
+    adjusting (frame_log "ba"). Returns the system."""
+    from pointnerf_slam_torch.io.config import load_config
+    cfg = load_config(os.path.join(
+        HERE, "configs/Synthetic/ablations/box_ba_dynamic.yaml"))
+    cfg["data"]["frame_cache_dir"] = ""
+    slam, secs, after = run_system(torch, cfg, "dynamic")
+    ba, prev = 0, 0
+    logged = {r["idx"]: r for r in slam.frame_log}
+    for idx in sorted(after):
+        now = after[idx]["fused_vg_mapper"]
+        if logged.get(idx, {}).get("ba", False):
+            ba += now - prev
+        prev = now
+    first = sum(float(r["track_first"]) for r in slam.frame_log
+                if "track_first" in r)
+    best = sum(float(r["track_best"]) for r in slam.frame_log
+               if "track_best" in r)
+    print(f"dynamic: {slam.n_img} frames in {secs:.1f} s; bundle-adjusting "
+          f"mapper launches {ba} (frames "
+          f"{[i for i, r in logged.items() if r.get('ba')]}); summed "
+          f"tracking loss {first:.2f} -> {best:.2f}", flush=True)
+    if ba <= 0:
+        fail("dynamic: the mapper never ran with ray gradients (BA)")
+    if not best < first:
+        fail("dynamic: tracking did not lower the summed loss")
+    check_poses(slam, "dynamic", DYN_T_MAX, tracked_only=False)
+    return slam
+
+
 def frame_line(rec) -> str:
+    """One frame's record: host seconds per phase (card seconds between
+    the phase's events beside them), tracking, camera and mapping."""
+    from pointnerf_slam_torch.engine import PointNeRFSLAM
     line = [f"frame {rec['idx']}"]
+    dev = PointNeRFSLAM.device_seconds(rec)
+    secs = [f"{k} {rec[k + '_s']:.2f} s (card {dev[k]:.2f} s)" for k in
+            ("frontend", "tracking", "mapping") if k + "_s" in rec]
+    if secs:
+        line.append(", ".join(secs))
     if "t_err_m" in rec:
         line.append(f"track {float(rec['track_first']):.2f} -> "
                     f"{float(rec['track_best']):.2f}, cam err "
@@ -494,16 +952,23 @@ def phase_track_check(torch, slam):
 
 
 def frame_rays(torch, slam, idx, n, gen):
-    """n pixels of frame idx, drawn as the tracker draws them, and their
-    rays at the frame's estimated pose."""
+    """n pixels of frame idx, drawn as the tracker draws them (in weak
+    mode among the pixels of the supervising pseudo-depth > 0.01, which is
+    then gt_d), and their rays at the frame's estimated pose."""
     from pointnerf_slam_torch.core.rays import (gather_pixels, rays_from_uv,
-                                                sample_uv_uniform)
+                                                sample_uv_uniform,
+                                                sample_uv_valid)
     from pointnerf_slam_torch.core.se3 import camera_from_tensor
     e = slam.ecfg
     _, color, depth, _ = slam.frame_reader[idx]
     c, d, _ = slam._upload_frame(idx, color, depth)
-    flat = sample_uv_uniform(gen, e.W, e.ignore_edge_H, e.H - e.ignore_edge_H,
-                             e.ignore_edge_W, e.W - e.ignore_edge_W, n)
+    if e.weak_depth:
+        d = slam._supervising_depth(idx, d)
+        flat = sample_uv_valid(gen, d > 0.01, n)[0]
+    else:
+        flat = sample_uv_uniform(gen, e.W, e.ignore_edge_H,
+                                 e.H - e.ignore_edge_H, e.ignore_edge_W,
+                                 e.W - e.ignore_edge_W, n)
     i, j, gt_d, gt_c = gather_pixels(flat, e.W, d, c)
     cam = slam._cam7(slam.estimate_c2w_list[idx])
     ro, rd = rays_from_uv(i, j, camera_from_tensor(cam), e.fx, e.fy, e.cx,
@@ -545,6 +1010,35 @@ def phase_kernels_map(torch, slam, report):
             report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
                                               err)
 
+    def rays_of(n):
+        return frame_rays(torch, slam, last, n, gen)[:3]
+
+    phase_kernels_mk(torch, report, dec, "map", rays_of, bound, 2 * p1_err)
+
+
+def phase_kernels_dynamic(torch, slam, report):
+    """K2, K3 and K4 against their plain versions on the decoder the
+    dynamic phase mapped, at its tracker's shape: tracking.pixels (1500)
+    rays of its last tracked frame as the tracker draws them (pseudo-depth
+    pixels, estimated pose), N_samples + N_importance (24 + 8), no
+    regulation; same tolerances as the other cells."""
+    from pointnerf_slam_torch.ops import fused_vg as F
+    e, r = slam.ecfg, slam.rcfg
+    gen = torch.Generator(device=slam.device).manual_seed(9)
+    last = max(rec["idx"] for rec in slam.frame_log if "track_best" in rec)
+    ro, rd, gt_d, _ = frame_rays(torch, slam, last, e.tracking_pixels, gen)
+    pw = F.pack_weights(F.params_of(slam.decoder))
+    p1_err = check_p1(torch, F, pw, F._pack_rays(ro, rd, gt_d, slam.bound),
+                      slam.bound, "dynamic", r.N_samples)
+    report["p1_sigma"]["max_abs_err"] = max(
+        report["p1_sigma"]["max_abs_err"], p1_err)
+    _, err, gerr = check_render(
+        torch, "dynamic", slam.decoder, ro, rd, gt_d,
+        torch.zeros(ro.shape[0], r.N_samples, device=slam.device),
+        slam.bound, False, 2 * p1_err, S1=r.N_samples, SI=r.N_importance)
+    for k, v in (("megakernel_fwd", err), ("megakernel_bwd", gerr)):
+        report[k]["max_abs_err"] = max(report[k]["max_abs_err"], v)
+
 
 def main() -> int:
     if len(sys.argv) > 1:
@@ -577,16 +1071,37 @@ def main() -> int:
                 print(f"build: {name}: {ln.strip()}")
     report = {}
     phase_kernels(torch, report)
-    F.reset_launches()
-    phase_engine(torch)
-    slam = phase_system(torch)
-    counts = dict(F.launches)
-    print(f"launches on the main path: {counts}")
+    # each path from counts of 0, read right after it; the kernels each
+    # path must launch
+    counts = {k: 0 for k in F.launches}
+    k1 = ("p1_sigma", "fused_vg_mapper", "fused_vg_tracker")
+    paths = (("sensor", lambda: (phase_engine(torch), phase_system(torch))[1],
+              k1),
+             ("weak", lambda: phase_weak(torch), k1),
+             ("dynamic", lambda: phase_dynamic(torch),
+              ("p1_sigma", "fused_vg_mapper", "megakernel_fwd",
+               "megakernel_bwd")))
+    for label, run, must in paths:
+        F.reset_launches()
+        out = run()
+        got = dict(F.launches)
+        print(f"launches on the {label} path: {got}", flush=True)
+        for k in must:
+            if got[k] <= 0:
+                fail(f"kernel {k} never launched on the {label} path")
+        for k in counts:
+            counts[k] += got[k]
+        if label == "sensor":
+            slam = out
+        elif label == "dynamic":
+            dyn = out
+    print(f"launches on the main paths: {counts}")
     for k, c in counts.items():
         if c <= 0:
             fail(f"kernel {k} never launched on the main path")
     phase_track_check(torch, slam)
     phase_kernels_map(torch, slam, report)
+    phase_kernels_dynamic(torch, dyn, report)
     print(json.dumps({"kernels": [dict(name=k, launches=counts[k], **v)
                                   for k, v in report.items()]}))
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,10 @@ import torch
 def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
     """(..., 4) quaternion (w, x, y, z) -> (..., 3, 3) rotation."""
     qr, qi, qj, qk = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
-    two_s = 2.0 / torch.sum(q * q, dim=-1)
+    # a tensor numerator: `2.0 / x` gets float64 tangents under forward-mode
+    # autodiff (torch.func.jacfwd, the front-end's Gauss-Newton)
+    n2 = torch.sum(q * q, dim=-1)
+    two_s = torch.full_like(n2, 2.0) / n2
     rows = [
         torch.stack([1.0 - two_s * (qj * qj + qk * qk),
                      two_s * (qi * qj - qk * qr),

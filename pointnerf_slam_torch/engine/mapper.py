@@ -24,12 +24,11 @@ from __future__ import annotations
 
 import torch
 
-from ..core.rays import rays_from_uv, sample_uv_uniform
+from ..core.rays import rays_from_uv, sample_uv_uniform, sample_uv_valid
 from ..core.se3 import camera_from_tensor
 from ..ops.fused_vg import fused_vg_loss, make_fused_vg_split, \
     supports_fused_vg
 from .state import Draws, EngineConfig
-from .tracker import WEAK_TODO
 
 
 def make_mapper_step(model_cfg, rcfg, ecfg: EngineConfig, max_frames: int,
@@ -38,9 +37,8 @@ def make_mapper_step(model_cfg, rcfg, ecfg: EngineConfig, max_frames: int,
             or not supports_fused_vg(model_cfg, rcfg):
         raise NotImplementedError(
             "mapping off the fused value-and-grad path needs the "
-            "two-kernel render path (ROADMAP Queue 2 K3/K4), not ported yet")
-    if ecfg.weak_depth:
-        raise NotImplementedError(WEAK_TODO)
+            "two-kernel render path in the mapper (ROADMAP Queue 1 item 11), "
+            "not ported yet")
     H, W = ecfg.H, ecfg.W
     ppf = max(ecfg.mapping_pixels // max_frames, 1)
     no_cam = bool(ecfg.no_ba_fast and not ecfg.BA)
@@ -49,9 +47,12 @@ def make_mapper_step(model_cfg, rcfg, ecfg: EngineConfig, max_frames: int,
         w_beyond=ecfg.w_beyond_loss, with_ray_grads=not no_cam)
     SR = rcfg.N_samples
 
-    def sample(gen, n_frames):
+    def sample(gen, depths):
+        if ecfg.weak_depth:
+            return torch.stack([sample_uv_valid(gen, d > 0.01, ppf)[0]
+                                for d in depths])
         return torch.stack([sample_uv_uniform(gen, W, 0, H, 0, W, ppf)
-                            for _ in range(n_frames)])
+                            for _ in range(depths.shape[0])])
 
     def mapper_step(decoder, colors, depths, fixed_cams, frame_valid,
                     ba_mask, bound, draws: Draws, num_iters: int):
@@ -74,7 +75,7 @@ def make_mapper_step(model_cfg, rcfg, ecfg: EngineConfig, max_frames: int,
         fr = torch.arange(F, device=dev)[:, None]
         losses = []
         for _ in range(num_iters // K):
-            idx = draws.take(lambda g: sample(g, F))           # (F, ppf)
+            idx = draws.take(lambda g: sample(g, depths))      # (F, ppf)
             gt_d = depths.reshape(F, -1)[fr, idx].reshape(-1)
             gt_c = (colors.reshape(F, -1, 3)[fr, idx].to(torch.float32)
                     / 255.0).reshape(-1, 3)

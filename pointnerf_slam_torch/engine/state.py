@@ -53,8 +53,8 @@ class EngineConfig:
     keyframe_selection_method: str = "global"
     frustum_feature_selection: bool = False
     occupancy: bool = False
-    # "auto"/"on": the fused value-and-grad path; "off" needs the two-kernel
-    # render path, which is not ported (ROADMAP Queue 2 K3/K4)
+    # "auto"/"on": the fused kernels (K1/K2, and the K3/K4 pair where the
+    # tracker needs it); "off" (the plain renderer) is not ported
     megakernel: str = "auto"
     sync_method: str = "loose"
     fix_fine: bool = True
@@ -136,8 +136,9 @@ class Draws:
 class KeyframeBuffer:
     """Fixed-capacity keyframe store on the device.
 
-      color (K, H, W, 3) uint8, depth (K, H, W) float32,
-      est_c2w (K, 7) camera tensors.
+      color (K, H, W, 3) uint8, depth (K, H, W) float32 (sensor depth),
+      pseudo_depth (K, H, W) float32 (weak mode's splatted supervision,
+      0 where absent), est_c2w (K, 7) camera tensors.
     The host keeps the frame-index list."""
 
     def __init__(self, capacity: int, H: int, W: int, device):
@@ -145,13 +146,15 @@ class KeyframeBuffer:
         self.color = torch.zeros(capacity, H, W, 3, dtype=torch.uint8,
                                  device=device)
         self.depth = torch.zeros(capacity, H, W, device=device)
+        self.pseudo_depth = torch.zeros(capacity, H, W, device=device)
         self.est_c2w = torch.zeros(capacity, 7, device=device)
         self.frame_idx: list = []
 
     def __len__(self):
         return len(self.frame_idx)
 
-    def insert(self, frame_idx: int, color_u8, depth, est_c2w7):
+    def insert(self, frame_idx: int, color_u8, depth, est_c2w7,
+               pseudo_depth=None):
         slot = len(self.frame_idx)
         if slot >= self.capacity:
             raise RuntimeError(f"keyframe buffer full ({self.capacity}); "
@@ -160,10 +163,14 @@ class KeyframeBuffer:
         dev = self.color.device
         self.color[slot] = torch.as_tensor(color_u8, device=dev)
         self.depth[slot] = torch.as_tensor(depth, device=dev)
+        if pseudo_depth is not None:
+            self.pseudo_depth[slot] = torch.as_tensor(pseudo_depth,
+                                                      device=dev)
         self.est_c2w[slot] = torch.as_tensor(est_c2w7, device=dev)
 
     def gather_window(self, slots: np.ndarray):
-        """(color, depth, est_c2w) of the window's slots, on the device."""
+        """(color, depth, pseudo_depth, est_c2w) of the window's slots."""
         s = torch.as_tensor(np.asarray(slots), dtype=torch.int64,
                             device=self.color.device)
-        return self.color[s], self.depth[s], self.est_c2w[s]
+        return (self.color[s], self.depth[s], self.pseudo_depth[s],
+                self.est_c2w[s])

@@ -1,35 +1,54 @@
-"""Single-controller SLAM system, sensor-depth iMAP* path.
+"""Single-controller SLAM system: the iMAP* path with sensor depth or,
+in weak-depth (RGB-only) mode, with the sparse front-end's pseudo-depth.
 
-Per-frame schedule:
-  idx == 0: adopt the gt pose, insert the first keyframe, init-map with
-            iters_first (a fresh Adam; lr_first_factor has no effect on the
-            iMAP* decoder learning rate, as upstream).
-  every later frame: Adam pose refinement through the fused kernels
-            (or the gt pose with tracking.gt_camera).
-  idx % every_frame == 0: keyframe insertion (keyframe_every, and the
-            second-to-last frame), window selection ('global': random
+Per-frame schedule (the JAX reference's engine/system.py):
+  idx == 0: adopt the gt pose, insert the first keyframe; sensor-depth
+            mode init-maps with iters_first (a fresh Adam; lr_first_factor
+            has no effect on the iMAP* decoder learning rate, as upstream).
+  tracking: sensor-depth mode tracks every frame (or takes the gt pose
+            with tracking.gt_camera). Weak mode tracks every
+            track_every_frame-th frame:
+              - before the bootstrap: the front-end's two-view bootstrap
+                against frame 0 (a RuntimeError, too little parallax,
+                postpones it to the next tracked frame); then the skipped
+                poses are interpolated, frames 0 and idx get their
+                pseudo-depth and the first keyframe's slot is back-filled;
+              - after it: the motion model at tracked-frame granularity,
+                the front-end's continuous solve (field context, pose-init
+                override, scale telemetry), then the NeRF tracker on the
+                fresh pseudo-depth, then interpolation of the untracked
+                frames in between;
+            other weak frames copy the previous pose.
+  mapping:  idx % every_frame == 0 (and the final frame): keyframe
+            insertion (keyframe_every, the second-to-last frame, and every
+            mapped frame in weak mode), window selection ('global': random
             keyframes drawn with np.random.default_rng(seed), the same
             draws as the JAX reference), then 3 outers x iters/3 mapping
             iterations (mapping.fused_outer: windows drawn first, then the
-            outers back to back).
+            outers back to back); weak mode maps nothing before the
+            bootstrap and its first map runs iters_first. Weak supervision
+            is the frame's pseudo-depth, or the latest one when the frame
+            has none; keyframes supervise with their pseudo-depth slots.
   final frame: colour refine (5 outers, doubled window).
 
 Frames go to the device once each, quantised to u8 colour and u16 depth
 (step depth_max / 65535) as the keyframe store holds them.
 
-Not ported yet (each raises NotImplementedError): weak-depth mode and its
-sparse front-end (ROADMAP Queue 1 item 8), NICE (item 11), logger and
-checkpoints (item 9), mesher (item 10), multi-device mapping (item 11),
-'overlap' keyframe selection and frustum feature masks (item 11).
+Not ported yet (each raises NotImplementedError): NICE and SuperPoint
+(ROADMAP Queue 1 item 11), logger and checkpoints (item 9), mesher (item
+10), multi-device mapping (item 11), 'overlap' keyframe selection and
+frustum feature masks (item 11).
 """
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
-from ..core.se3_np import (camera_from_tensor_np, tensor_from_camera_np,
-                           to_homogeneous_np)
+from ..core.se3_np import (camera_from_tensor_np, interp_c2w_np,
+                           tensor_from_camera_np, to_homogeneous_np)
 from ..io.config import load_config
 from ..io.datasets import get_dataset
 from ..models.decoders import get_model
@@ -56,10 +75,6 @@ class PointNeRFSLAM:
         if cfg.get("nice", False):
             raise NotImplementedError(
                 "NICE mode is not ported yet (ROADMAP Queue 1 item 11)")
-        if cfg["weak_depth"]:
-            raise NotImplementedError(
-                "weak-depth mode and its sparse front-end are not ported yet "
-                "(ROADMAP Queue 1 item 8, the next slice)")
         want = (cfg.get("parallel", {}) or {}).get("data_devices", "auto")
         if want != "auto" and int(want) > 1:
             raise NotImplementedError(
@@ -103,8 +118,21 @@ class PointNeRFSLAM:
         self._pending_pose = None      # (idx, device cam7) of a tracked frame
         self._frame_dev = None         # (idx, color f32, depth f32, color u8)
         # per-frame device records: tracking first/best loss, camera error
-        # against gt, mapping losses (read by run.py, no sync in step)
+        # against gt, mapping losses and whether the mapper bundle-adjusted
+        # (read by run.py, no sync in step), the host seconds of the
+        # front-end, tracking and mapping, and on the card their events
         self.frame_log = []
+        self.frontend = None
+        if self.ecfg.weak_depth and not self.ecfg.gt_camera:
+            from ..frontend.frontend import SparseFrontend
+            self.frontend = SparseFrontend(cfg, self.H, self.W, self.fx,
+                                           self.fy, self.cx, self.cy,
+                                           device=self.device)
+        self._bootstrapped = not self.ecfg.weak_depth or self.ecfg.gt_camera
+        self._pose_init_override = None
+        self.pseudo_depths = {}        # frame idx -> device (H, W)
+        self.scale_telemetry = []      # per tracked frame (weak mode)
+        self.timings = {"tracking": 0.0, "mapping": 0.0, "frontend": 0.0}
 
     # -- setup ------------------------------------------------------------
     def _update_cam(self):
@@ -183,8 +211,10 @@ class PointNeRFSLAM:
         return sorted(set(int(c) for c in chosen) | {n_kf - 1})
 
     def _window(self, slots, max_frames, cur_color_u8, cur_depth, cur_cam):
-        kf_color, kf_depth, kf_cams = self.keyframes.gather_window(
+        kf_color, kf_depth, kf_pseudo, kf_cams = self.keyframes.gather_window(
             np.asarray(slots + [0] * (max_frames - 1 - len(slots)), np.int64))
+        if self.ecfg.weak_depth:
+            kf_depth = kf_pseudo
         valid = np.zeros((max_frames,), bool)
         valid[: len(slots)] = True
         valid[-1] = True
@@ -193,14 +223,68 @@ class PointNeRFSLAM:
                 torch.cat([kf_cams, cur_cam[None]], 0),
                 torch.as_tensor(valid, device=self.device))
 
+    def _clock(self):
+        """The start of a phase: host time and, on the card, an event
+        recorded on the current stream (never waited for in step)."""
+        ev = None
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+        return time.time(), ev
+
+    def _tick(self, key: str, t0, idx: int) -> None:
+        """Add the host seconds since t0 (from _clock) to timings[key] and
+        to frame idx's record, without waiting for the device, as the JAX
+        reference times its phases. On the card the record also keeps the
+        phase's start and end events; device_seconds reads them."""
+        host0, ev0 = t0
+        dt = time.time() - host0
+        self.timings[key] += dt
+        if not self.frame_log or self.frame_log[-1]["idx"] != idx:
+            self.frame_log.append({"idx": idx})
+        rec = self.frame_log[-1]
+        rec[f"{key}_s"] = rec.get(f"{key}_s", 0.0) + dt
+        if ev0 is not None:
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev1.record()
+            rec.setdefault(f"{key}_events", []).append((ev0, ev1))
+
+    @staticmethod
+    def device_seconds(rec: dict) -> dict:
+        """{phase: seconds} of one frame record on the card: the time
+        between each phase's start and end events on the stream. Waits for
+        the frame's last event, so call it after step, not inside it."""
+        out = {}
+        for k, pairs in rec.items():
+            if k.endswith("_events"):
+                pairs[-1][1].synchronize()
+                out[k[:-len("_events")]] = sum(
+                    a.elapsed_time(b) for a, b in pairs) / 1e3
+        return out
+
+    def _supervising_depth(self, idx: int, sensor_depth_dev):
+        """Sensor depth, or in weak mode the frame's pseudo-depth (else the
+        latest one, as the reference tracks against the last tracked
+        frame's; zeros before the bootstrap)."""
+        if not self.ecfg.weak_depth:
+            return sensor_depth_dev
+        if idx in self.pseudo_depths:
+            return self.pseudo_depths[idx]
+        if self.pseudo_depths:
+            return self.pseudo_depths[max(self.pseudo_depths)]
+        return torch.zeros(self.H, self.W, device=self.device)
+
     # -- mapping ----------------------------------------------------------
     def _map_frame(self, idx, color, sensor_depth, num_iters, outer_iters,
                    refine=False):
+        t0 = self._clock()
         max_frames = (self.ecfg.mapping_window_size * 2 + 1 if refine
                       else self.max_window)
         cur_cam = self._cam7_current(idx)
-        _, cur_depth, cur_u8 = self._upload_frame(idx, color, sensor_depth)
+        _, sensor_dev, cur_u8 = self._upload_frame(idx, color, sensor_depth)
+        cur_depth = self._supervising_depth(idx, sensor_dev)
         do_ba = self.ecfg.BA and len(self.keyframes) > 4
+        self._log(idx, "ba", do_ba)
         if self.ecfg.fused_outer and not do_ba and outer_iters > 1:
             wins = [self._window(self._select_window(refine), max_frames,
                                  cur_u8, cur_depth, cur_cam)
@@ -212,6 +296,7 @@ class PointNeRFSLAM:
                                 self.draws, num_iters)
             self._log(idx, "map_losses", losses)
             self.mapping_first_frame_done = True
+            self._tick("mapping", t0, idx)
             return
         step_fn = self._get_mapper_step(max_frames, False)
         for _ in range(outer_iters):
@@ -237,12 +322,17 @@ class PointNeRFSLAM:
                     self._pending_pose = None
                 self.estimate_c2w_list[idx] = self._c2w44(cur_cam)
         self.mapping_first_frame_done = True
+        self._tick("mapping", t0, idx)
 
     # -- tracking ---------------------------------------------------------
     def _track_frame(self, idx, color, sensor_depth, gt_c2w):
         """Refine the pose of frame idx; the result stays on the device
         until the end of the step."""
-        if self.ecfg.const_speed_assumption and idx >= 2:
+        t0 = self._clock()
+        if self._pose_init_override is not None:
+            init = self._pose_init_override
+            self._pose_init_override = None
+        elif self.ecfg.const_speed_assumption and idx >= 2:
             pre = self.estimate_c2w_list[idx - 1]
             prepre = self.estimate_c2w_list[idx - 2]
             init = pre @ np.linalg.inv(prepre) @ pre
@@ -251,8 +341,8 @@ class PointNeRFSLAM:
         color_dev, depth_dev, _ = self._upload_frame(idx, color,
                                                      sensor_depth)
         best_cam, best_loss, first_loss, _ = self.tracking_step(
-            self.decoder, self._cam7(init), color_dev, depth_dev,
-            self.bound, self.draws)
+            self.decoder, self._cam7(init), color_dev,
+            self._supervising_depth(idx, depth_dev), self.bound, self.draws)
         gt_cam = self._cam7(gt_c2w)
         self._log(idx, "track_first", first_loss)
         self._log(idx, "track_best", best_loss)
@@ -260,6 +350,7 @@ class PointNeRFSLAM:
         self._log(idx, "t_err_m", torch.linalg.norm(gt_cam[4:]
                                                     - best_cam[4:]))
         self._pending_pose = (idx, best_cam)
+        self._tick("tracking", t0, idx)
 
     def _commit_pending_pose(self):
         if self._pending_pose is not None:
@@ -283,12 +374,14 @@ class PointNeRFSLAM:
     # -- keyframes --------------------------------------------------------
     def _maybe_insert_keyframe(self, idx, color, sensor_depth):
         e = self.ecfg
-        if not (idx % e.keyframe_every == 0 or idx == self.n_img - 2) \
-                or idx in self.keyframes.frame_idx:
+        want = (idx % e.keyframe_every == 0 or idx == self.n_img - 2
+                or (e.weak_depth and idx % e.every_frame == 0))
+        if not want or idx in self.keyframes.frame_idx:
             return
         _, depth_dev, color_u8 = self._upload_frame(idx, color, sensor_depth)
         self.keyframes.insert(idx, color_u8, depth_dev,
-                              self._cam7_current(idx))
+                              self._cam7_current(idx),
+                              pseudo_depth=self.pseudo_depths.get(idx))
 
     # -- main loop ----------------------------------------------------------
     def step(self, idx, color, sensor_depth, gt_c2w):
@@ -298,22 +391,122 @@ class PointNeRFSLAM:
         if idx == 0:
             self.estimate_c2w_list[0] = gt_c2w
             self._maybe_insert_keyframe(0, color, sensor_depth)
-            self._map_frame(0, color, sensor_depth, e.iters_first, 1)
+            if not e.weak_depth:
+                self._map_frame(0, color, sensor_depth, e.iters_first, 1)
             return
         if e.gt_camera:
             self.estimate_c2w_list[idx] = gt_c2w
+        elif e.weak_depth:
+            tracked = idx % e.track_every_frame == 0
+            if tracked and not self._bootstrapped:
+                self._bootstrap_weak(idx)
+            elif tracked and self.mapping_first_frame_done:
+                self._frontend_frame(idx)
+                self._track_frame(idx, color, sensor_depth, gt_c2w)
+                self._commit_pending_pose()
+                if self.scale_telemetry \
+                        and self.scale_telemetry[-1]["idx"] == idx:
+                    self.scale_telemetry[-1]["c_refined"] = \
+                        self.estimate_c2w_list[idx][:3, 3].tolist()
+                    self.scale_telemetry[-1]["c_gt"] = \
+                        np.asarray(gt_c2w)[:3, 3].tolist()
+                self._backfill_poses(idx - e.track_every_frame, idx)
+            else:
+                self.estimate_c2w_list[idx] = self.estimate_c2w_list[idx - 1]
         else:
             self._track_frame(idx, color, sensor_depth, gt_c2w)
         final = idx == self.n_img - 1
-        if idx % e.every_frame == 0 or final:
+        if (idx % e.every_frame == 0 or final) and self._bootstrapped:
             self._maybe_insert_keyframe(idx, color, sensor_depth)
             if final and e.color_refine:
                 self._map_frame(idx, color, sensor_depth, e.iters, 5,
                                 refine=True)
+            elif e.weak_depth and not self.mapping_first_frame_done:
+                self._map_frame(idx, color, sensor_depth, e.iters_first, 1)
             else:
                 self._map_frame(idx, color, sensor_depth,
                                 max(e.iters // 3, 1), 3)
+            # the mapper's work is queued, not waited for: read the next
+            # tracked frame on the host while the device maps, then queue
+            # its feature extraction behind the mapper
+            if self.frontend is not None and not final:
+                nxt = (idx // e.track_every_frame + 1) * e.track_every_frame
+                if nxt < self.n_img:
+                    t0 = self._clock()
+                    self.frontend.prefetch_extract(self.frame_reader, nxt)
+                    self._tick("frontend", t0, idx)
         self._commit_pending_pose()
+
+    # -- weak mode ----------------------------------------------------------
+    def _backfill_poses(self, lo: int, hi: int):
+        """SE(3) interpolation of the untracked frames strictly between
+        two solved frames (the pose copies would cost their full motion)."""
+        if hi - lo < 2 or lo < 0:
+            return
+        a = self.estimate_c2w_list[lo]
+        b = self.estimate_c2w_list[hi]
+        for k in range(lo + 1, hi):
+            self.estimate_c2w_list[k] = interp_c2w_np(a, b,
+                                                      (k - lo) / (hi - lo))
+
+    def _bootstrap_weak(self, idx):
+        """The front-end's two-view bootstrap of frame idx against frame 0;
+        a RuntimeError (too little parallax) postpones it."""
+        t0 = self._clock()
+        try:
+            est_c2w, pseudo_ref, pseudo_cur = self.frontend.bootstrap(
+                self.frame_reader, 0, idx, self.estimate_c2w_list[0])
+        except RuntimeError as err:
+            print(f"frontend bootstrap failed at {idx} ({err}); retrying at "
+                  f"the next tracked frame", flush=True)
+            self.estimate_c2w_list[idx] = self.estimate_c2w_list[idx - 1]
+            self._tick("frontend", t0, idx)
+            return
+        self._bootstrapped = True
+        self.bootstrap_idx = idx
+        self.estimate_c2w_list[idx] = est_c2w
+        self._backfill_poses(0, idx)
+        self.pseudo_depths[0] = pseudo_ref
+        self.pseudo_depths[idx] = pseudo_cur
+        if 0 in self.keyframes.frame_idx:
+            slot = self.keyframes.frame_idx.index(0)
+            self.keyframes.pseudo_depth[slot] = pseudo_ref
+        self._tick("frontend", t0, idx)
+
+    def _frontend_frame(self, idx):
+        """The front-end's continuous solve for tracked frame idx: its pose
+        initialises the NeRF tracker, its pseudo-depth supervises it."""
+        t0 = self._clock()
+        step = self.ecfg.track_every_frame
+        est = self.estimate_c2w_list
+        if idx - 2 * step >= 0 and self.ecfg.const_speed_assumption:
+            pre, prepre = est[idx - step], est[idx - 2 * step]
+            est[idx] = pre @ np.linalg.inv(prepre) @ pre
+        else:
+            est[idx] = est[idx - 1]
+        field_ctx = None
+        if self.mapping_first_frame_done:
+            field_ctx = dict(decoder=self.decoder, c2w_pred=est[idx],
+                             bound=self.bound, rcfg=self.rcfg)
+        ref_idx = self.frontend.prev["frame_idx"] \
+            if self.frontend.prev is not None else -1
+        gt_baseline = None
+        if self.ecfg.gt_scale_injection and ref_idx >= 0:
+            gt_baseline = float(np.linalg.norm(
+                self.gt_c2w_list[idx][:3, 3] - self.gt_c2w_list[ref_idx][:3, 3]))
+        est_c2w, pseudo = self.frontend.track_continuous(
+            self.frame_reader, idx, est, field_ctx=field_ctx,
+            gt_baseline=gt_baseline)
+        if est_c2w is not None:
+            self._pose_init_override = est_c2w
+        if pseudo is not None:
+            self.pseudo_depths[idx] = pseudo
+        self.scale_telemetry.append({
+            "idx": idx, "ref_idx": ref_idx,
+            "c_prior": est[idx][:3, 3].tolist(),
+            "c_solve": None if est_c2w is None
+            else np.asarray(est_c2w)[:3, 3].tolist()})
+        self._tick("frontend", t0, idx)
 
     def run(self, start_idx: int = 0, on_frame=None):
         """Process frames start_idx .. n_img-1; on_frame(self, idx) after

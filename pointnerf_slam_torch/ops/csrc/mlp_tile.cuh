@@ -164,6 +164,66 @@ __device__ __forceinline__ bool inside(float x, float y, float z,
          z < b6[5];
 }
 
+// Pass-1 density at S1 stratified depths per ray (K2, also the first step
+// of the megakernel forward): z = 0.01*gt_d*(1-t) + far*t, t = s/(S1-1);
+// sigma column of the head, 100 outside the AABB. rays: (n, 8)
+// [o, d, gt_d, far]; sig1: (n, S1).
+__global__ void __launch_bounds__(NTHREADS)
+p1_kernel(Weights w, const float* __restrict__ rays,
+          const float* __restrict__ bound6, float* __restrict__ sig1,
+          int n_rays, int S1) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* xs = reinterpret_cast<float*>(smem);
+  bf16* es = reinterpret_cast<bf16*>(smem + SM_XS);
+  bf16* h0s = reinterpret_cast<bf16*>(smem + SM_XS + SM_ES);
+  bf16* h1s = reinterpret_cast<bf16*>(smem + SM_XS + SM_ES + SM_H);
+  float* stage = reinterpret_cast<float*>(smem + SM_XS + SM_ES + 2 * SM_H);
+  __shared__ float b6[6];
+
+  const int t = threadIdx.x;
+  const long P = (long)n_rays * S1;
+  const long p0 = (long)blockIdx.x * TILE_M;
+  if (t < 6) b6[t] = bound6[t];
+  if (t < TILE_M) {
+    const long p = p0 + t;
+    float x = 0.f, y = 0.f, zc = 0.f, z = 0.f;
+    if (p < P) {
+      const float* ray = rays + (p / S1) * 8;
+      const float tv = (float)(p % S1) / (float)(S1 - 1);
+      z = 0.01f * ray[6] * (1.f - tv) + ray[7] * tv;
+      x = ray[0] + ray[3] * z;
+      y = ray[1] + ray[4] * z;
+      zc = ray[2] + ray[5] * z;
+    }
+    xs[t * 4 + 0] = x;
+    xs[t * 4 + 1] = y;
+    xs[t * 4 + 2] = zc;
+    xs[t * 4 + 3] = z;
+  }
+  __syncthreads();
+  embed_tile(xs, w.Bp, es, nullptr);
+  __syncthreads();
+  hidden_layers(w, es, h0s, h1s, stage, nullptr);
+  if (t < TILE_M && p0 + t < P) {
+    const float s = head_out(w, h1s, t, 3);
+    sig1[p0 + t] = inside(xs[t * 4], xs[t * 4 + 1], xs[t * 4 + 2], b6)
+                       ? s : 100.f;
+  }
+}
+
+inline cudaError_t launch_p1(const Weights& w, const float* rays,
+                             const float* bound6, float* sig1, int n_rays,
+                             int S1, cudaStream_t stream) {
+  const long P = (long)n_rays * S1;
+  const int grid = (int)((P + TILE_M - 1) / TILE_M);
+  cudaError_t e = cudaFuncSetAttribute(
+      p1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SM_FWD);
+  if (e != cudaSuccess) return e;
+  p1_kernel<<<grid, NTHREADS, SM_FWD, stream>>>(w, rays, bound6, sig1,
+                                                n_rays, S1);
+  return cudaGetLastError();
+}
+
 }  // namespace mlp
 
 extern "C" const char* kernel_error_string(int code) {

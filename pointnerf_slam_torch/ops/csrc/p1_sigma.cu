@@ -6,6 +6,8 @@
 // Per point: z = 0.01*gt_d*(1-t) + far*t with t = s/(S1-1); x = o + d*z;
 // emb = sin(x . B) in float32; four bf16 tensor-core layers; sigma column
 // of the head; 100 where x lies outside the AABB (strict inequalities).
+// The kernel itself (`p1_kernel`) lives in mlp_tile.cuh: the megakernel
+// forward (megakernel.cu) runs the same pass first.
 //
 // Bound on the H100: the work is ~0.42 MFLOP of bf16 products per point
 // against 36 bytes of input and 4 of output per point, so it is bound by
@@ -18,60 +20,10 @@
 
 using namespace mlp;
 
-__global__ void __launch_bounds__(NTHREADS)
-p1_kernel(Weights w, const float* __restrict__ rays,
-          const float* __restrict__ bound6, float* __restrict__ sig1,
-          int n_rays, int S1) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* xs = reinterpret_cast<float*>(smem);
-  bf16* es = reinterpret_cast<bf16*>(smem + SM_XS);
-  bf16* h0s = reinterpret_cast<bf16*>(smem + SM_XS + SM_ES);
-  bf16* h1s = reinterpret_cast<bf16*>(smem + SM_XS + SM_ES + SM_H);
-  float* stage = reinterpret_cast<float*>(smem + SM_XS + SM_ES + 2 * SM_H);
-  __shared__ float b6[6];
-
-  const int t = threadIdx.x;
-  const long P = (long)n_rays * S1;
-  const long p0 = (long)blockIdx.x * TILE_M;
-  if (t < 6) b6[t] = bound6[t];
-  if (t < TILE_M) {
-    const long p = p0 + t;
-    float x = 0.f, y = 0.f, zc = 0.f, z = 0.f;
-    if (p < P) {
-      const float* ray = rays + (p / S1) * 8;
-      const float tv = (float)(p % S1) / (float)(S1 - 1);
-      z = 0.01f * ray[6] * (1.f - tv) + ray[7] * tv;
-      x = ray[0] + ray[3] * z;
-      y = ray[1] + ray[4] * z;
-      zc = ray[2] + ray[5] * z;
-    }
-    xs[t * 4 + 0] = x;
-    xs[t * 4 + 1] = y;
-    xs[t * 4 + 2] = zc;
-    xs[t * 4 + 3] = z;
-  }
-  __syncthreads();
-  embed_tile(xs, w.Bp, es, nullptr);
-  __syncthreads();
-  hidden_layers(w, es, h0s, h1s, stage, nullptr);
-  if (t < TILE_M && p0 + t < P) {
-    const float s = head_out(w, h1s, t, 3);
-    sig1[p0 + t] = inside(xs[t * 4], xs[t * 4 + 1], xs[t * 4 + 2], b6)
-                       ? s : 100.f;
-  }
-}
-
 extern "C" int p1_sigma(const void* const* wp, const float* rays,
                         const float* bound6, float* sig1, int n_rays, int S1,
                         cudaStream_t stream) {
   if (n_rays <= 0) return 0;
-  const Weights w = weights_from(wp);
-  const long P = (long)n_rays * S1;
-  const int grid = (int)((P + TILE_M - 1) / TILE_M);
-  cudaError_t e = cudaFuncSetAttribute(
-      p1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SM_FWD);
-  if (e != cudaSuccess) return (int)e;
-  p1_kernel<<<grid, NTHREADS, SM_FWD, stream>>>(w, rays, bound6, sig1,
-                                                n_rays, S1);
-  return (int)cudaGetLastError();
+  return (int)launch_p1(weights_from(wp), rays, bound6, sig1, n_rays, S1,
+                        stream);
 }

@@ -58,7 +58,8 @@ EMB_PAD = 128          # Fourier columns padded 93 -> 128 in the kernel layout
 HID = 256
 
 # kernel launches since the last reset, by wrapper (chip_smoke reads these)
-launches = {"p1_sigma": 0, "fused_vg_mapper": 0, "fused_vg_tracker": 0}
+launches = {"p1_sigma": 0, "fused_vg_mapper": 0, "fused_vg_tracker": 0,
+            "megakernel_fwd": 0, "megakernel_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -66,9 +67,14 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
+# most merged samples per ray the kernels hold (csrc/vg_shared.cuh MAXS)
+MAX_SAMPLES = 64
+
+
 def supports_fused_vg(model_cfg, rcfg) -> bool:
     """The kernels cover the iMAP* flagship decoder and sampling."""
     return (model_cfg.c_dim == 0 and model_cfg.color
+            and rcfg.N_samples + rcfg.N_importance <= MAX_SAMPLES
             and model_cfg.pos_embedding_method == "fourier"
             and model_cfg.skips == () and model_cfg.n_blocks == 4
             and model_cfg.hidden_size == HID and not model_cfg.leaky

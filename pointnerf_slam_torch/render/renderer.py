@@ -69,14 +69,19 @@ def _field(decoder, rays_o, rays_d, z, bound):
 
 def render_rays(decoder, rcfg: RenderConfig, rays_o, rays_d, bound,
                 gt_depth, with_zvals: bool = False):
-    """Render (N,) rays guided by gt_depth (N,).
+    """Render (N,) rays guided by gt_depth (N,); with gt_depth None (a
+    novel view, no depth prior) near is 0.01 and far the AABB exit.
 
     Returns depth (N,), depth_var (N,), color (N, 3), weights (N, S)
     [, z_vals (N, S), sigma (N, S) with with_zvals]."""
     rcfg.check_supported()
-    gt_depth = gt_depth.reshape(-1)
-    near = (gt_depth * 0.01)[:, None]
-    far = clip_far(ray_far_bound(rays_o, rays_d, bound), gt_depth)[:, None]
+    far = ray_far_bound(rays_o, rays_d, bound)[:, None]
+    if gt_depth is None:
+        near = torch.full_like(far, 0.01)
+    else:
+        gt_depth = gt_depth.reshape(-1)
+        near = (gt_depth * 0.01)[:, None]
+        far = clip_far(far[:, 0], gt_depth)[:, None]
     z = stratified_zvals(near, far, rcfg.N_samples)
     raw1 = _field(decoder, rays_o, rays_d, z, bound)
     _, _, _, w1 = raw2outputs(raw1, z, rays_d)

@@ -24,6 +24,9 @@ from pointnerf_slam_torch.core import se3 as T3
 from pointnerf_slam_torch.core import se3_np as Tnp
 from pointnerf_slam_torch.engine.state import EngineConfig
 from pointnerf_slam_torch.io.config import load_config
+from tests.torch_threads import share_cores
+
+share_cores()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 1e-5

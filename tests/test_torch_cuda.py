@@ -121,3 +121,50 @@ def test_cuda_fused_vg_loss_backward(cuda):
     for k, p in F.params_of(dec).items():
         torch.testing.assert_close(p.grad, ref[1][k])
     torch.testing.assert_close(ro.grad, ref[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mapped", [False, True])
+@pytest.mark.parametrize("with_reg", [False, True])
+def test_cuda_megakernel_matches_plain(cuda, with_reg, mapped):
+    """K3/K4 against fused_render_reference's pieces (chip_smoke's
+    check_render: z2, per-ray outputs, var, sigma_reg, and the gradients
+    of a loss linear in the outputs, with and without weight gradients)."""
+    dec, rays, b = setup(cuda, mapped=mapped)
+    noise = sigma_noise(dec, rays, b)
+    before = (F.launches["megakernel_fwd"], F.launches["megakernel_bwd"])
+    S.check_render(torch, "test", dec, rays[0], rays[1], rays[2], rays[5], b,
+                   with_reg, noise)
+    assert F.launches["megakernel_fwd"] > before[0]
+    assert F.launches["megakernel_bwd"] > before[1]
+
+
+@pytest.mark.cuda
+def test_cuda_megakernel_out_of_bound_sentinel(cuda):
+    """Rays entirely outside the AABB composite against sigma 100 and get
+    no sigma cotangent: K3 equals the plain version there."""
+    from pointnerf_slam_torch.ops.megakernel import make_fused_render
+    dec, rays, b = setup(cuda, n=130, seed=4)
+    ro = rays[0] + 10.0
+    render = make_fused_render(RenderConfig(), with_reg=True)
+    k = render(dec, ro, rays[1], rays[2], rays[5], b)
+    with torch.no_grad():
+        p = render({n: t.cpu() for n, t in F.params_of(dec).items()},
+                   ro.cpu(), rays[1].cpu(), rays[2].cpu(), rays[5].cpu(),
+                   b.cpu())
+    torch.testing.assert_close(k[3].cpu(), p[3], atol=1e-3, rtol=0)
+    torch.testing.assert_close(k[0].detach().cpu(), p[0], atol=1e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mapped", [False, True])
+def test_cuda_megakernel_tracker_shape(cuda, mapped):
+    """K3/K4 at box_ba_dynamic's tracker launch (24 + 8 samples, no
+    regulation, its 1500 rays) through chip_smoke's check_render, K3's
+    middle included."""
+    dec, rays, b = setup(cuda, n=1500, mapped=mapped)
+    noise = sigma_noise(dec, rays, b)
+    S.check_render(torch, "test 24+8", dec, rays[0], rays[1], rays[2],
+                   rays[5][:, :24].contiguous(), b, False, noise, S1=24,
+                   SI=8)

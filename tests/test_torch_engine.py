@@ -18,21 +18,28 @@ test_beyond_loss_mapper_step_parity)."""
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from pointnerf_slam_tpu.engine.mapper import make_mapper_step as j_mapper
 from pointnerf_slam_tpu.engine.state import EngineConfig as JEC
 from pointnerf_slam_tpu.engine.tracker import make_tracking_step as j_tracker
-from pointnerf_slam_tpu.core.rays import sample_uv_uniform
+from pointnerf_slam_tpu.core.rays import sample_uv_uniform, sample_uv_valid
 from pointnerf_slam_tpu.models.decoders import MLPConfig as JCfg
 from pointnerf_slam_tpu.models.decoders import init_mlp
 from pointnerf_slam_tpu.render.renderer import RenderConfig as JRC
+from pointnerf_slam_torch.core.rays import rays_from_uv
+from pointnerf_slam_torch.core.se3 import camera_from_tensor
 from pointnerf_slam_torch.engine.mapper import make_mapper_step
 from pointnerf_slam_torch.engine.state import Draws, EngineConfig
 from pointnerf_slam_torch.engine.tracker import make_tracking_step
 from pointnerf_slam_torch.models.decoders import (IMAPDecoder, MLPConfig,
                                                   params_from_jax)
+from pointnerf_slam_torch.ops.megakernel import make_fused_render
 from pointnerf_slam_torch.render.renderer import RenderConfig
+from tests.torch_threads import share_cores
+
+share_cores()
 
 H, W, F, O = 16, 24, 2, 2
 N_TRACK, N_MAP = 128, 384
@@ -205,3 +212,80 @@ def test_mapper_bundle_adjustment_matches_reference():
     assert float((cams_t[1] - T(cams[1])).abs().max()) > 1e-3
     np.testing.assert_allclose(cams_t.numpy(), np.asarray(cams_j),
                                atol=1e-3)
+
+
+def two_kernel_draws(key, depth, weak, n_iters):
+    """Pixel indices the reference's two-kernel tracker draws: one batch
+    per iteration from the first half of each iteration key (tracker.py
+    loss_fn), among pseudo-depth > 0.01 pixels in weak mode."""
+    out = []
+    for k in jax.random.split(key, n_iters):
+        k_s, _ = jax.random.split(k)
+        if weak:
+            idx, _ = sample_uv_valid(k_s, depth > 0.01, N_TRACK)
+        else:
+            idx = sample_uv_uniform(k_s, W, 0, H, 0, W, N_TRACK)
+        out.append(T(idx).long())
+    return out
+
+
+@pytest.mark.parametrize("weak,dynamic,depth_sup", [
+    (False, True, True), (True, True, True), (True, False, False)])
+def test_two_kernel_tracker_matches_reference(weak, dynamic, depth_sup):
+    """The megakernel-pair tracker (handle_dynamic's batch-median mask, or
+    colour-only tracking) against the reference's with megakernel="on",
+    draws replayed: first and best loss rtol 2e-2, best camera within one
+    Adam step (1e-3) per component."""
+    jcfg = JCfg(dim=3, c_dim=0, color=True, hidden_size=256, skips=(),
+                n_blocks=4)
+    tree = jax.tree_util.tree_map(np.asarray,
+                                  init_mlp(jax.random.PRNGKey(0), jcfg))
+    dec = IMAPDecoder(MLPConfig())
+    dec.load_state_dict(params_from_jax(tree))
+    cam_gt = np.array([1.0, 0, 0, 0, 0, 0, 2.5], np.float32)
+    cam0 = np.array([1.0, 0.01, 0, 0, 0.02, 0, 2.5], np.float32)
+    # the frame is the decoder's own render at cam_gt (the plain version),
+    # depth with 2% noise, and 10% "dynamic" pixels 1 m off: the batch
+    # median mask then separates them by far more than the bf16 noise. The
+    # AABB is tight, so every ray's far end (AABB exit + 0.01) holds the
+    # constant sentinel density: no ray sits at the last-interval step
+    # (alpha 0 or 1 there as a near-zero sigma's sign falls)
+    bound = np.array([[-1.0, 1.0]] * 3, np.float32)
+    rng = np.random.default_rng(7)
+    jj, ii = np.meshgrid(np.arange(H, dtype=np.float32),
+                         np.arange(W, dtype=np.float32), indexing="ij")
+    ro, rd = rays_from_uv(T(ii.reshape(-1)), T(jj.reshape(-1)),
+                          camera_from_tensor(T(cam_gt)), 12.0, 12.0, 11.5,
+                          7.5)
+    with torch.no_grad():
+        dep, _, col, _ = make_fused_render(RenderConfig(), with_reg=False)(
+            dec, ro, rd, torch.full((H * W,), 4.0), torch.zeros(H * W, 32),
+            T(bound))
+    depth = dep.numpy().reshape(H, W) * rng.uniform(0.98, 1.02, (H, W))
+    depth[rng.uniform(size=(H, W)) < 0.1] += 1.0
+    depth[0, 0] = 4.0         # far = AABB exit on every ray
+    depth = depth.astype(np.float32)
+    color = col.numpy().reshape(H, W, 3).clip(0, 1).astype(np.float32)
+    if weak:                  # sparse pseudo-depth: most pixels hold none
+        depth[rng.uniform(size=(H, W)) < 0.6] = 0.0
+    cfg = dict(ECFG, weak_depth=weak, handle_dynamic=dynamic,
+               depth_supervision=depth_sup, track_resample_every=1)
+    key = jax.random.PRNGKey(3)
+    bc_j, bl_j, fl_j = j_tracker(jcfg, JRC(), JEC(**cfg, megakernel="on"))(
+        tree, {}, cam0, color, depth, bound, key)
+    bc_t, bl_t, fl_t, losses_t = make_tracking_step(
+        MLPConfig(), RenderConfig(), EngineConfig(**cfg))(
+        dec, T(cam0), T(color), T(depth), T(bound),
+        Draws(replay=two_kernel_draws(key, depth, weak, TRACK_ITERS)))
+    assert losses_t.shape == (TRACK_ITERS,)
+    assert dec.layers[0].w.grad is None        # no decoder gradient
+    np.testing.assert_allclose(float(fl_t), float(fl_j), rtol=2e-2)
+    np.testing.assert_allclose(float(bl_t), float(bl_j), rtol=2e-2)
+    np.testing.assert_allclose(bc_t.numpy(), np.asarray(bc_j), atol=1e-3)
+
+
+def test_median_of_takes_the_mean_of_the_middle_pair():
+    from pointnerf_slam_torch.engine.tracker import median_of
+    x = torch.tensor([4.0, 1.0, 3.0, 2.0])
+    assert float(median_of(x)) == float(np.median(x.numpy())) == 2.5
+    assert float(median_of(x[:3])) == 3.0

@@ -35,6 +35,9 @@ from pointnerf_slam_torch.models.decoders import (IMAPDecoder, MLPConfig,
                                                   params_to_jax)
 from pointnerf_slam_torch.ops import fused_vg as F
 from pointnerf_slam_torch.render.renderer import RenderConfig
+from tests.torch_threads import share_cores
+
+share_cores()
 
 JCFG = JCfg(dim=3, c_dim=0, color=True, hidden_size=256, skips=(),
             n_blocks=4)

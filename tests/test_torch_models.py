@@ -13,6 +13,9 @@ from pointnerf_slam_torch.models.decoders import (IMAPDecoder, MLPConfig,
                                                   get_model, params_from_jax,
                                                   params_to_jax)
 from pointnerf_slam_torch.models.embeddings import fourier_project
+from tests.torch_threads import share_cores
+
+share_cores()
 
 
 def jax_params(seed, hidden=256, n_blocks=4):

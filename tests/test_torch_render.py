@@ -13,6 +13,9 @@ from pointnerf_slam_tpu.render import renderer as JR
 from pointnerf_slam_torch.models.decoders import (IMAPDecoder, MLPConfig,
                                                   params_from_jax)
 from pointnerf_slam_torch.render import renderer as TR
+from tests.torch_threads import share_cores
+
+share_cores()
 
 JCFG = JCfg(dim=3, c_dim=0, color=True, hidden_size=32, skips=(), n_blocks=2)
 BOUND = np.array([[-2.0, 2.0], [-2.0, 2.0], [-2.0, 2.0]], np.float32)

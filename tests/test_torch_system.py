@@ -1,7 +1,8 @@
 """The port's data, system and device handling: synthetic frames equal to
 the reference's byte for byte (and the same frame cache format), the
 sensor-depth system on configs/Synthetic/box.yaml for 3 frames on the CPU,
-and the refusals (no CUDA card, unported modes)."""
+and the refusals (no CUDA card, unported modes; weak mode and
+handle_dynamic run now, tests/test_torch_weak.py)."""
 
 import os
 
@@ -16,6 +17,9 @@ from pointnerf_slam_torch.engine.system import PointNeRFSLAM, random_select
 from pointnerf_slam_torch.io.config import load_config
 from pointnerf_slam_torch.io.datasets import get_dataset
 from pointnerf_slam_torch.utils.device import resolve_device
+from tests.torch_threads import share_cores
+
+share_cores()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BOX = os.path.join(REPO, "configs", "Synthetic", "box.yaml")
@@ -110,12 +114,16 @@ def test_cuda_request_without_card_raises():
 
 
 @pytest.mark.parametrize("edit,match", [
-    (lambda c: c.update(weak_depth=True), "item 8"),
+    # weak mode where the reference would load SuperPoint weights
+    (lambda c: c.update(weak_depth=True, superpoint_weights=os.path.join(
+        REPO, "pretrained", "superpoint_synthetic.npz")), "item 11"),
     (lambda c: c.update(nice=True), "NICE"),
     (lambda c: c["mapping"].update(keyframe_selection_method="overlap"),
      "overlap"),
     (lambda c: c.update(parallel={"data_devices": 4}), "multi-device"),
-    (lambda c: c["tracking"].update(handle_dynamic=True), "K3/K4"),
+    # more samples per ray than the fused kernels hold: the reference's
+    # mapper and tracker would take its plain or megakernel branch
+    (lambda c: c["rendering"].update(N_samples=96), "item 11"),
     (lambda c: c["data"].update(dataset="replica"), "not ported"),
 ])
 def test_unported_modes_raise(edit, match):
@@ -123,3 +131,27 @@ def test_unported_modes_raise(edit, match):
     edit(cfg)
     with pytest.raises(NotImplementedError, match=match):
         PointNeRFSLAM(cfg, n_frames_cap=2, device="cpu")
+
+
+def test_trajectory_errors_match_reference_ate():
+    """run.trajectory_errors' Horn-aligned RMSE and max against the JAX
+    reference's tools/eval_ate.evaluate_ate, and its unaligned ones
+    against their definition, on a perturbed random trajectory."""
+    from pointnerf_slam_torch.run import trajectory_errors
+    from pointnerf_slam_tpu.tools.eval_ate import evaluate_ate
+    rng = np.random.default_rng(3)
+    gt = np.tile(np.eye(4), (30, 1, 1))
+    gt[:, :3, 3] = np.cumsum(rng.normal(scale=0.1, size=(30, 3)), 0)
+    est = gt.copy()
+    est[:, :3, 3] = gt[:, :3, 3] @ np.array(
+        [[0.0, -1, 0], [1, 0, 0], [0, 0, 1]]).T + 0.3 + rng.normal(
+            scale=0.02, size=(30, 3))
+    got, ref = trajectory_errors(est, gt), evaluate_ate(gt, est)
+    assert got["ate_rmse"] == pytest.approx(
+        ref["absolute_translational_error.rmse"], rel=1e-9)
+    assert got["ate_max"] == pytest.approx(
+        ref["absolute_translational_error.max"], rel=1e-9)
+    raw = np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=1)
+    assert got["max"] == pytest.approx(raw.max())
+    assert got["rmse"] == pytest.approx(np.sqrt(np.mean(raw ** 2)))
+    assert got["ate_rmse"] < 0.05 < got["rmse"]
