@@ -8,7 +8,7 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build: compiles every kernel from pointnerf_slam_torch/ops/csrc with
      nvcc for sm_90a, one process per source, all started together;
      prints the seconds and ptxas' register and spill lines
-  3. kernels, random cell: at the main path's shapes (5000 rays, 32+12
+  3. kernels, random cell: at the main paths' shapes (5000 rays, 32+12
      samples, 32 regulation samples, 256-wide MLP) and a random decoder,
      each kernel is held against its plain PyTorch version on the same
      inputs and timed with CUDA events:
@@ -18,33 +18,52 @@ Phases, in order; any failure raises and the script exits non-zero:
        megakernel K3/K4  vs fused_render_reference, at the tracker shape
                          (5000 rays, no regulation) and the mapper shape
                          (4998 rays, with regulation)
+       fused_mlp K5/K6   vs mlp_forward_reference / mlp_backward_reference:
+                         K5 at a 500,000-point chunk of room_bench's mesh
+                         grid and at the mapper's plain-path 539,784
+                         points, K6 at the 379,848 its loss reaches (random
+                         and the loss's own cotangent); the decoder as five
+                         bf16 torch.matmul calls is timed beside K5
   4. engine: the bench workload (680x1200, 6-frame window) through the
      port's tracker (50 iterations, K=5) and fused-outer mapper (3 x 100,
      K=4, no BA); ms per iteration; losses finite and falling
   5. system, sensor depth: PointNeRFSLAM on room_bench.yaml at full
      680x1200 width with the flagship schedule (fused_outer, K=4/5) for
-     frames 0..5, colour refine off; mapping losses fall on every mapped
-     frame, tracking lowers the summed loss, camera errors stay small
-  6. system, weak depth: room_bench_weak.yaml (the flagship) at 680x1200,
+     frames 0..5, colour refine off, the mesher attached
+     (outputs.attach_outputs): mapping losses fall on every mapped frame,
+     tracking lowers the summed loss, camera errors stay small; the last
+     frame writes final_mesh.ply and final_mesh_eval_rec.ply at
+     resolution 256 (float32 decoder) under output/chip_smoke/room_bench
+  6. mesh: both PLYs read back; the same mesh from a snapshot with the
+     fused decoder (K5) is held against final_mesh.ply (counts within 1%,
+     mean nearest-vertex distance under half a voxel); seconds by stage
+  7. engine, plain branch (megakernel: off): the bench workload with
+     MLPConfig(fused=True) (K5/K6 launched exactly 100 / 50 times by the
+     tracker, 900 / 600 by the mapper) and with fused=False (no kernel);
+     losses fall, first losses compared
+  8. mapper two-kernel branch: 40 + 24 samples (past fused value-and-
+     grad's cover), w_beyond_loss 0: K3/K4 for 20 iterations, loss falls
+  9. system, weak depth: room_bench_weak.yaml (the flagship) at 680x1200,
      frames 0..20 as configured (iters_first 1500, colour refine on the
      last frame): the sparse front-end bootstraps by frame 15 (its 2 deg
      parallax gate needs ~15 frames of this orbit), continuous tracked
      frames follow, pseudo-depth agrees with the sensor depth the run never
      sees, mapping losses fall, poses stay finite and near gt
-  7. system, dynamic: configs/Synthetic/ablations/box_ba_dynamic.yaml, all
+ 10. system, dynamic: configs/Synthetic/ablations/box_ba_dynamic.yaml, all
      40 frames (weak depth, handle_dynamic, BA): the tracker runs K3/K4,
      the mapper K1 with ray gradients (BA); tracking lowers the summed loss
-  8. the launch counts of phases 4-7, each phase counted from 0 (every
-     kernel must have launched on the main path)
-  9. tracking check: the tracker pulls frame 0 back from a 2 cm shift on
+ 11. the launch counts of phases 4-10, each path counted from 0 (every
+     kernel must have launched on the main paths)
+ 12. tracking check: the tracker pulls frame 0 back from a 2 cm shift on
      the map that phase 5 built
- 10. kernels, map cell: the kernels against their plain versions again,
+ 13. kernels, map cell: the kernels against their plain versions again,
      on that map's decoder and on rays of frames 0 and 5 as the tracker
      and the mapper draw them (losses at their real scale)
- 11. kernels, dynamic cell: K2, K3 and K4 again on the decoder phase 7
+ 14. kernels, dynamic cell: K2, K3 and K4 again on the decoder phase 10
      mapped, at its tracker's shape (1500 rays, 24+8 samples, no
      regulation, pseudo-depth pixels of its last tracked frame)
- 12. one `{"kernels": [...]}` line, then the device line last.
+ 15. one `{"kernels": [...]}` line (launches per path beside the total),
+     then the device line last.
 Nothing here imports JAX or the JAX package.
 """
 
@@ -87,6 +106,17 @@ Z2_REL, Z2_SHARE = 1e-2, 0.05
 # on the card, PERF.md); a floor of 1e-6 instead of + 1e-5 moves them by
 # 0.05-0.7 (tests/test_torch_megakernel.py)
 MID_ETA = 2e-5
+# K5/K6 against their plain versions (check_mlp), in check_vg's style:
+# forward within 1e-3 (1 + |raw|) on >= 98% of values and within 2e-2
+# max|raw| on every value (bf16 tie noise); dx and every parameter
+# gradient by cosine and norm ratio
+MLP_ATOL, MLP_SHARE, MLP_MAX = 1e-3, 0.02, 2e-2
+MLP_COS, MLP_RATIO = 0.9999, 1e-3
+N_MESH_CHUNK = 500_000      # the mesher's points_batch_size
+MESH_COUNT_REL = 0.01       # mesh: K5 vs float32 vertex / triangle counts
+# engine plain branch: first losses, K5/K6 (bf16 products) against plain
+# float32 at the same draws
+PLAIN_FIRST_RTOL = {"tracker": 0.1, "mapper": 2e-2}
 PSEUDO_REL = 0.15           # weak: median relative pseudo-depth error
 WEAK_FRAMES, WEAK_BOOT_BY = 21, 15   # weak: frames run, bootstrap frame
 WEAK_T_MAX = 0.05           # weak: translation error of tracked frames
@@ -400,6 +430,10 @@ def phase_kernels(torch, report):
     phase_kernels_mk(torch, report, dec, "random",
                      lambda n: rays_batch(torch, gen, n, cams)[:3], bound,
                      2 * p1_err)
+    # K5/K6
+    phase_kernels_mlp(torch, report, dec, "random",
+                      lambda n: rays_batch(torch, gen, n, cams), bound,
+                      timing=True)
 
 
 def cos_ratio(a, b):
@@ -678,50 +712,246 @@ def phase_kernels_mk(torch, report, dec, cell, rays_of, bound, sig_noise):
             report[k]["max_abs_err"] = max(report[k]["max_abs_err"], e)
 
 
+def check_mlp(torch, tag, params, x, g=None):
+    """K5 (and, given a cotangent g, K6) against the plain versions on the
+    same inputs, tolerances MLP_* at the top of the file. K6's launches
+    without weight gradients (the tracker's) and without dx (the mapper's
+    without BA) must give the full launch's dx and weight gradients bit for
+    bit. Returns (forward max abs err, gradient max abs err or None)."""
+    from pointnerf_slam_torch.ops import fused_mlp as M
+    from pointnerf_slam_torch.ops.fused_vg import PARAM_NAMES
+    n = x.shape[0]
+    out_k = M.k5_forward(params, x)
+    with torch.no_grad():
+        out_p = M.mlp_forward_reference(params, x)
+    torch.cuda.synchronize()
+    err = (out_k - out_p).abs()
+    scale = float(out_p.abs().max())
+    share = float((err > MLP_ATOL * (1 + out_p.abs())).float().mean())
+    print(f"kernels: K5[{tag}, {n} points]: max err {float(err.max()):.3e} "
+          f"(max|raw| {scale:.3e}), {share:.5f} of values beyond "
+          f"{MLP_ATOL}(1+|raw|)", flush=True)
+    if not bool(torch.isfinite(out_k).all()) or share > MLP_SHARE \
+            or float(err.max()) > MLP_MAX * scale:
+        fail(f"K5[{tag}]: max err {float(err.max())} (scale {scale}), "
+             f"{share} beyond")
+    if g is None:
+        return float(err.max()), None
+    dx_k, gk = M.k6_backward(params, x, g, True, True)
+    dx_only, _ = M.k6_backward(params, x, g, False, True)
+    _, g_only = M.k6_backward(params, x, g, True, False)
+    dx_p, gp = M.mlp_backward_reference(params, x, g)
+    torch.cuda.synchronize()
+    if not torch.equal(dx_k, dx_only) or not all(
+            torch.equal(gk[k], g_only[k]) for k in PARAM_NAMES):
+        fail(f"K6[{tag}]: the partial launches differ from the full one")
+    gerr, worst = 0.0, (1.0, 1.0, "")
+    for nm, a, b in [("x", dx_k, dx_p)] + [(k, gk[k], gp[k])
+                                           for k in PARAM_NAMES]:
+        cos, ratio = cos_ratio(a, b)
+        gerr = max(gerr, float((a - b).abs().max()))
+        worst = min(worst, (cos, ratio, nm))
+        if not (bool(torch.isfinite(a).all()) and cos >= MLP_COS
+                and abs(ratio - 1) <= MLP_RATIO):
+            fail(f"K6[{tag}]: grad {nm} cos {cos} ratio {ratio}")
+    print(f"kernels: K6[{tag}, {n} points]: dx and {len(PARAM_NAMES)} "
+          f"parameter gradients within cos {MLP_COS}, ratio 1 +- "
+          f"{MLP_RATIO}; lowest cos {worst[0]:.7f} ({worst[2]}, ratio "
+          f"{worst[1]:.6f}); max abs err {gerr:.3e}; partial launches "
+          f"equal", flush=True)
+    return float(err.max()), gerr
 
-def bench_engine(torch, dec, tracker_iters=50, map_inner=100):
-    """The bench workload through the port's tracker and mapper."""
-    from pointnerf_slam_torch.engine.mapper import make_mapper_step
-    from pointnerf_slam_torch.engine.state import Draws, EngineConfig
-    from pointnerf_slam_torch.engine.tracker import make_tracking_step
-    from pointnerf_slam_torch.models.decoders import MLPConfig
-    from pointnerf_slam_torch.render.renderer import RenderConfig
+
+def mesh_chunk(torch, dev):
+    """The mesher's middle chunk (N_MESH_CHUNK points) of room_bench's
+    257^3 grid over its marching_cubes_bound [-2.02, 2.02]^3."""
+    ax = torch.arange(-2.02, 2.02 + 1e-6, 4.04 / 256, dtype=torch.float32,
+                      device=dev)
+    n = ax.numel()
+    flat = torch.arange(N_MESH_CHUNK, device=dev) + (n ** 3 // 2
+                                                     - N_MESH_CHUNK // 2)
+    return torch.stack([ax[flat // (n * n)], ax[(flat // n) % n],
+                        ax[flat % n]], 1)
+
+
+def plain_mapper_points(torch, params, ro, rd, gt_d, gt_c, ray_w, t_reg,
+                        bound, w_beyond=1.0):
+    """The decoder calls of one plain-path mapper iteration (pass 1, pass
+    2, regulation; the mapper's loss with w_color 0.05, w_beyond, 0.0005
+    sigma_reg) on the plain decoder: returns (every call's points, the
+    points of the calls the loss reaches (pass 2 and regulation), their
+    cotangents d loss / d raw)."""
+    from pointnerf_slam_torch.models.decoders import mlp_apply
+    from pointnerf_slam_torch.ops.fused_vg import _BEYOND_HI, _BEYOND_LO
+    from pointnerf_slam_torch.render.renderer import (RenderConfig,
+                                                      regulation, render_rays)
+    calls = []
+    p = {k: v.detach() for k, v in params.items()}
+
+    def field(x):
+        out = mlp_apply(p, x.detach()).requires_grad_(True)
+        calls.append((x.detach(), out))
+        return out
+
+    rc = RenderConfig()
+    dep, _, col, w, z, _ = render_rays(field, rc, ro, rd, bound, gt_d,
+                                       with_zvals=True)
+    m = (gt_d > 0).float() * ray_w
+    band = ((z > gt_d[:, None] - _BEYOND_LO)
+            & (z < gt_d[:, None] + _BEYOND_HI)).float()
+    sig = regulation(field, rc, ro, rd, gt_d, bound, t_reg)
+    loss = ((gt_d - dep).abs() * m).sum() \
+        + w_beyond * ((1 - (w * band).sum(-1)) * m).sum() \
+        + 0.05 * ((gt_c - col).abs().sum(-1) * ray_w).sum() \
+        + 0.0005 * (sig.reshape(ro.shape[0], -1).abs() * ray_w[:, None]).sum()
+    outs = [o for _, o in calls]
+    grads = torch.autograd.grad(loss, outs, allow_unused=True)
+    x_all = torch.cat([x for x, _ in calls])
+    live = [(x, gr) for (x, _), gr in zip(calls, grads) if gr is not None]
+    return (x_all, torch.cat([x for x, _ in live]),
+            torch.cat([gr for _, gr in live]).contiguous())
+
+
+def phase_kernels_mlp(torch, report, dec, cell, rays_of, bound,
+                      timing=False):
+    """K5 at a mesh chunk (N_MESH_CHUNK grid points) and at the mapper's
+    plain-path shape (4998 rays x (32 + 44 + 32) points); K6 at the points
+    the mapper's loss reaches (4998 x (44 + 32)), with a random cotangent
+    and with the mapper loss's own. rays_of(n) -> (rays_o, rays_d, gt_d,
+    gt_c) on the card. With timing, the kernels, their plain versions and
+    the decoder as five bf16 torch.matmul calls are timed."""
+    from pointnerf_slam_torch.ops import fused_mlp as M
+    from pointnerf_slam_torch.ops import fused_vg as F
     dev = torch.device("cuda")
-    ecfg = EngineConfig(H=H, W=W, fx=FX, fy=FX, cx=CX, cy=CY,
-                        tracking_pixels=5000, num_cam_iters=tracker_iters,
-                        cam_lr=1e-3, mapping_pixels=5000,
-                        mapping_window_size=5, weak_depth=False,
-                        depth_supervision=True, no_ba_fast=True,
-                        w_beyond_loss=1.0, map_resample_every=4,
-                        track_resample_every=5)
-    mcfg, rcfg = MLPConfig(), RenderConfig()
+    params = {k: v.detach() for k, v in F.params_of(dec).items()}
+    gen = torch.Generator(device=dev).manual_seed(13)
+    grid = mesh_chunk(torch, dev)
+    e5a, _ = check_mlp(torch, f"{cell}, mesh chunk", params, grid)
+    ro, rd, gt_d, gt_c = rays_of(4998)
+    ray_w = torch.ones(4998, device=dev)
+    t_reg = torch.rand(4998, 32, generator=gen, device=dev)
+    x_all, x_live, g_loss = plain_mapper_points(
+        torch, params, ro, rd, gt_d, gt_c, ray_w, t_reg, bound)
+    e5b, _ = check_mlp(torch, f"{cell}, mapper plain path", params, x_all)
+    g_rand = torch.randn(x_live.shape[0], 4, generator=gen, device=dev)
+    _, e6a = check_mlp(torch, f"{cell}, random cotangent", params, x_live,
+                       g_rand)
+    _, e6b = check_mlp(torch, f"{cell}, mapper loss cotangent", params,
+                       x_live, g_loss)
+    rows = report.setdefault("fused_mlp_fwd", dict(max_abs_err=0.0)), \
+        report.setdefault("fused_mlp_bwd", dict(max_abs_err=0.0))
+    rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"], e5a, e5b)
+    rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], e6a, e6b)
+    if not timing:
+        return
+    pw = F.pack_weights(params)
+    nw = sum(t.numel() * t.element_size() for t in [pw.Bp, *pw.Ws, *pw.bs])
+    n5, n6 = grid.shape[0], x_live.shape[0]
+    ms5 = timed(lambda: M.k5_forward(params, grid))
+    with torch.no_grad():
+        pms5 = timed(lambda: M.mlp_forward_reference(params, grid), 3)
+    ms5m = timed(lambda: M.k5_forward(params, x_all))
+    ms6 = timed(lambda: M.k6_backward(params, x_live, g_rand, True, False))
+    ms6t = timed(lambda: M.k6_backward(params, x_live, g_rand, False, True))
+    pms6 = timed(lambda: M.mlp_backward_reference(params, x_live, g_rand,
+                                                  True, False), 3)
+    ws = [torch.randn(k, m, generator=gen, device=dev).to(torch.bfloat16)
+          for k, m in ((93, 256), (256, 256), (256, 256), (256, 256),
+                       (256, 4))]
+    a0 = torch.randn(n5, 93, generator=gen, device=dev).to(torch.bfloat16)
+
+    def five_matmuls():
+        h = a0
+        for w in ws:
+            h = torch.matmul(h, w)
+        return h
+
+    mm = timed(five_matmuls)
+    b5, by5 = bound_ms(n5 * FLOP_FWD, n5 * 28 + nw)
+    b6, by6 = bound_ms(n6 * FLOP_FWD * 3, n6 * 40 + nw + F.GRAD_LEN * 4)
+    print(f"kernels: K5 {ms5:.3f} ms at {n5} points (plain {pms5:.3f} ms, "
+          f"bound {b5:.4f} ms by {by5}; five bf16 torch.matmul calls at "
+          f"the same shapes {mm:.3f} ms), {ms5m:.3f} ms at the mapper's "
+          f"{x_all.shape[0]}; K6 {ms6:.3f} ms at {n6} points with weight "
+          f"gradients (plain {pms6:.3f} ms, bound {b6:.4f} ms by {by6}), "
+          f"{ms6t:.3f} ms dx only", flush=True)
+    src = "pointnerf_slam_torch/ops/csrc/fused_mlp.cu"
+    rows[0].update(route="cuda", source=src,
+                   replaces="pointnerf_slam_tpu/ops/fused_mlp.py:104",
+                   ms=ms5, plain_ms=pms5, bound_ms=b5, bound_by=by5,
+                   library_ms=None)
+    rows[1].update(route="cuda", source=src,
+                   replaces="pointnerf_slam_tpu/ops/fused_mlp.py:116",
+                   ms=ms6, plain_ms=pms6, bound_ms=b6, bound_by=by6,
+                   library_ms=None)
+
+
+
+def bench_data(torch):
+    """The bench workload's inputs on the card: a random 680x1200 frame,
+    its 6-slot window (3 outers), cameras, masks and the AABB."""
+    dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     color = torch.rand(H, W, 3, generator=g, device=dev)
     depth = 0.5 + 2.5 * torch.rand(H, W, generator=g, device=dev)
     color_u8 = (color * 255).to(torch.uint8)
     Fn = 6
-    colors = color_u8.expand(3, Fn, H, W, 3)
-    depths = depth.expand(3, Fn, H, W)
-    cams = torch.tensor([1.0, 0, 0, 0, 0, 0, 2.5], device=dev).expand(
-        3, Fn, 7).contiguous()
-    valid = torch.ones(3, Fn, dtype=torch.bool, device=dev)
-    ba = torch.zeros(3, Fn, dtype=torch.bool, device=dev)
-    bound = torch.tensor([[-3.5, 3.5]] * 3, device=dev)
+    return dict(
+        color=color, depth=depth, colors=color_u8.expand(3, Fn, H, W, 3),
+        depths=depth.expand(3, Fn, H, W),
+        cams=torch.tensor([1.0, 0, 0, 0, 0, 0, 2.5], device=dev).expand(
+            3, Fn, 7).contiguous(),
+        valid=torch.ones(3, Fn, dtype=torch.bool, device=dev),
+        ba=torch.zeros(3, Fn, dtype=torch.bool, device=dev),
+        bound=torch.tensor([[-3.5, 3.5]] * 3, device=dev))
+
+
+def bench_ecfg(**over):
+    from pointnerf_slam_torch.engine.state import EngineConfig
+    kw = dict(H=H, W=W, fx=FX, fy=FX, cx=CX, cy=CY, tracking_pixels=5000,
+              num_cam_iters=50, cam_lr=1e-3, mapping_pixels=5000,
+              mapping_window_size=5, weak_depth=False,
+              depth_supervision=True, no_ba_fast=True, w_beyond_loss=1.0,
+              map_resample_every=4, track_resample_every=5)
+    kw.update(over)
+    return EngineConfig(**kw)
+
+
+def bench_engine(torch, dec, tracker_iters=50, map_inner=100, mcfg=None,
+                 megakernel="auto"):
+    """The bench workload through the port's tracker and mapper. Returns
+    (ms per tracker iteration, ms per mapper iteration, tracker losses,
+    mapper losses, {"tracker": launches, "mapper": launches})."""
+    from pointnerf_slam_torch.engine.mapper import make_mapper_step
+    from pointnerf_slam_torch.engine.state import Draws
+    from pointnerf_slam_torch.engine.tracker import make_tracking_step
+    from pointnerf_slam_torch.models.decoders import MLPConfig
+    from pointnerf_slam_torch.ops import fused_vg as F
+    from pointnerf_slam_torch.render.renderer import RenderConfig
+    dev = torch.device("cuda")
+    ecfg = bench_ecfg(num_cam_iters=tracker_iters, megakernel=megakernel)
+    mcfg, rcfg = mcfg or MLPConfig(), RenderConfig()
+    d = bench_data(torch)
     draws = Draws(torch.Generator(device=dev).manual_seed(2))
     track = make_tracking_step(mcfg, rcfg, ecfg)
-    mapper = make_mapper_step(mcfg, rcfg, ecfg, Fn, outer_fused=True)
+    mapper = make_mapper_step(mcfg, rcfg, ecfg, 6, outer_fused=True)
     cam0 = torch.tensor([1.0, 0, 0, 0, 0.02, 0, 2.5], device=dev)
     torch.cuda.synchronize()
+    l0 = dict(F.launches)
     t0 = time.time()
-    _, _, _, tl = track(dec, cam0, color, depth, bound, draws)
+    _, _, _, tl = track(dec, cam0, d["color"], d["depth"], d["bound"],
+                        draws)
     torch.cuda.synchronize()
     t1 = time.time()
-    _, ml = mapper(dec, colors, depths, cams, valid, ba, bound, draws,
-                   map_inner)
+    l1 = dict(F.launches)
+    _, ml = mapper(dec, d["colors"], d["depths"], d["cams"], d["valid"],
+                   d["ba"], d["bound"], draws, map_inner)
     torch.cuda.synchronize()
     t2 = time.time()
+    l2 = dict(F.launches)
+    delta = lambda a, b: {k: b[k] - a[k] for k in a if b[k] != a[k]}
     return ((t1 - t0) * 1e3 / tracker_iters, (t2 - t1) * 1e3 / (3 * map_inner),
-            tl, ml)
+            tl, ml, {"tracker": delta(l0, l1), "mapper": delta(l1, l2)})
 
 
 def falls(ls, k: int) -> bool:
@@ -737,7 +967,7 @@ def phase_engine(torch):
     dec = IMAPDecoder(MLPConfig(), torch.Generator().manual_seed(0)).to(
         "cuda")
     bench_engine(torch, dec, 5, 4)            # warm-up (allocator)
-    t_ms, m_ms, tl, ml = bench_engine(torch, dec)
+    t_ms, m_ms, tl, ml, _ = bench_engine(torch, dec)
     for nm, ls in (("tracker", tl), ("mapper", ml)):
         if not falls(ls, 5):
             fail(f"engine: {nm} loss not finite or did not fall: "
@@ -745,6 +975,145 @@ def phase_engine(torch):
     print(f"engine: tracker {t_ms:.2f} ms/iter (loss {float(tl[0]):.1f} -> "
           f"{float(tl[-1]):.1f}), mapper {m_ms:.2f} ms/iter (loss "
           f"{float(ml[0]):.1f} -> {float(ml[-1]):.1f})", flush=True)
+
+
+def phase_engine_plain(torch):
+    """The engine's plain branch (`rendering.megakernel: off`) at full
+    width: the bench workload once with MLPConfig(fused=True), which must
+    launch K5/K6 exactly 900 / 600 times in the mapper (3 x 100 iterations:
+    pass 1, pass 2, regulation forward; pass 2 and regulation backward)
+    and 100 / 50 in the tracker (50 iterations, no regulation), and once
+    with fused=False (plain float32 torch, the JAX reference's default
+    numerics), which launches no kernel. Both losses fall; the first
+    losses of the two are compared (the same draws: only the decoder's
+    numerics differ)."""
+    from pointnerf_slam_torch.models.decoders import IMAPDecoder, MLPConfig
+    runs = {}
+    for fused in (True, False):
+        mcfg = MLPConfig(fused=fused)
+        dec = IMAPDecoder(mcfg, torch.Generator().manual_seed(0)).to("cuda")
+        bench_engine(torch, dec, 5, 4, mcfg, "off")        # warm-up
+        dec = IMAPDecoder(mcfg, torch.Generator().manual_seed(0)).to("cuda")
+        t_ms, m_ms, tl, ml, got = bench_engine(torch, dec, mcfg=mcfg,
+                                               megakernel="off")
+        runs[fused] = (tl, ml)
+        for nm, ls in (("tracker", tl), ("mapper", ml)):
+            if not falls(ls, 5):
+                fail(f"engine plain[fused {fused}]: {nm} loss not finite or "
+                     f"did not fall: {ls[:5].tolist()} -> "
+                     f"{ls[-5:].tolist()}")
+        want = ({"tracker": {"fused_mlp_fwd": 100, "fused_mlp_bwd": 50},
+                 "mapper": {"fused_mlp_fwd": 900, "fused_mlp_bwd": 600}}
+                if fused else {"tracker": {}, "mapper": {}})
+        print(f"engine plain[fused {fused}]: tracker {t_ms:.2f} ms/iter "
+              f"(loss {float(tl[0]):.6g} -> {float(tl[-1]):.6g}), mapper "
+              f"{m_ms:.2f} ms/iter (loss {float(ml[0]):.6g} -> "
+              f"{float(ml[-1]):.6g}); launches {got}", flush=True)
+        if got != want:
+            fail(f"engine plain[fused {fused}]: launches {got}, want {want}")
+    for i, nm in enumerate(("tracker", "mapper")):
+        a, b = float(runs[True][i][0]), float(runs[False][i][0])
+        rel = abs(a - b) / abs(b)
+        print(f"engine plain: first {nm} loss K5/K6 {a:.7g} vs float32 "
+              f"{b:.7g}: relative difference {rel:.3e}", flush=True)
+        if not rel <= PLAIN_FIRST_RTOL[nm]:
+            fail(f"engine plain: first {nm} losses differ by {rel}")
+
+
+def phase_mapper_mk(torch):
+    """The mapper's two-kernel branch: 40 + 24 samples (104 points per ray
+    with regulation, past fused value-and-grad's cover of 100) with
+    w_beyond_loss 0 take K3 forward and K4 backward with weight gradients,
+    20 iterations on the bench window; the loss falls."""
+    from pointnerf_slam_torch.engine.mapper import make_mapper_step
+    from pointnerf_slam_torch.engine.state import Draws
+    from pointnerf_slam_torch.models.decoders import IMAPDecoder, MLPConfig
+    from pointnerf_slam_torch.render.renderer import RenderConfig
+    dev = torch.device("cuda")
+    d = bench_data(torch)
+    dec = IMAPDecoder(MLPConfig(), torch.Generator().manual_seed(0)).to(dev)
+    mapper = make_mapper_step(MLPConfig(), RenderConfig(N_samples=40,
+                                                        N_importance=24),
+                              bench_ecfg(w_beyond_loss=0.0), 6)
+    draws = Draws(torch.Generator(device=dev).manual_seed(4))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    _, ml = mapper(dec, d["colors"][0], d["depths"][0], d["cams"][0],
+                   d["valid"][0], d["ba"][0], d["bound"], draws, 20)
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3 / 20
+    print(f"mapper two-kernel: 40 + 24 samples, 20 iterations, {ms:.2f} "
+          f"ms/iter, loss {float(ml[0]):.6g} -> {float(ml[-1]):.6g}",
+          flush=True)
+    if not falls(ml, 5):
+        fail(f"mapper two-kernel: loss did not fall: {ml.tolist()}")
+
+
+def mesh_distance(a, b):
+    """Symmetric mean nearest-vertex distance of two vertex sets."""
+    from scipy.spatial import cKDTree
+    return 0.5 * (cKDTree(b).query(a)[0].mean()
+                  + cKDTree(a).query(b)[0].mean())
+
+
+def phase_mesh(torch, slam):
+    """The sensor phase's meshes (built by the system's maybe_mesh at the
+    last frame with the float32 decoder: final_mesh.ply and
+    final_mesh_eval_rec.ply) read back with the port's read_ply; then the
+    same mesh from a MeshSnapshot whose decoder is fused (K5: one launch
+    per 500,000-point grid chunk, two per 65,536-vertex colour chunk),
+    held against final_mesh.ply: vertex and triangle counts within
+    MESH_COUNT_REL, symmetric mean nearest-vertex distance under half a
+    voxel. Prints each build's seconds by stage."""
+    import dataclasses
+
+    import numpy as np
+    from pointnerf_slam_torch.ops import fused_vg as F
+    from pointnerf_slam_torch.outputs.mesher import MeshSnapshot, read_ply
+    mesher = slam.mesher
+    mdir = os.path.join(slam.output, "mesh")
+    meshes = {}
+    for name in ("final_mesh.ply", "final_mesh_eval_rec.ply"):
+        v, t, c = read_ply(os.path.join(mdir, name))
+        if not (len(v) and len(t) and c is not None
+                and np.isfinite(v).all()):
+            fail(f"mesh: {name} empty or not finite ({len(v)} verts)")
+        meshes[name] = (v, t)
+    snap = MeshSnapshot(slam, dataclasses.replace(slam.model_cfg,
+                                                  fused=True))
+    k0 = F.launches["fused_mlp_fwd"]
+    t0 = time.time()
+    out = mesher.get_mesh(snap, os.path.join(mdir, "final_mesh_k5.ply"),
+                          cur_idx=slam.n_img - 1)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    if out is None:
+        fail("mesh: the K5 build extracted nothing")
+    k5 = F.launches["fused_mlp_fwd"] - k0
+    n_grid = int(np.prod([len(a) for a in mesher.get_grid_uniform()]))
+    want = (-(-n_grid // mesher.points_batch_size)
+            + 2 * -(-len(out[0]) // 65536))
+    for b in mesher.builds:
+        print(f"mesh: {os.path.basename(b['file'])}: "
+              + ", ".join(f"{k} {v:.2f} s" for k, v in b["seconds"].items()),
+              flush=True)
+    v0, t0_ = meshes["final_mesh.ply"]
+    dv = abs(len(out[0]) - len(v0)) / len(v0)
+    dt = abs(len(out[1]) - len(t0_)) / len(t0_)
+    dist = mesh_distance(out[0], v0)
+    voxel = float(mesher.get_grid_uniform()[0][1]
+                  - mesher.get_grid_uniform()[0][0])
+    print(f"mesh: resolution {mesher.resolution} ({n_grid} grid points); "
+          f"float32 decoder {len(v0)} verts / {len(t0_)} tris, K5 "
+          f"{len(out[0])} / {len(out[1])} in {secs:.2f} s with {k5} K5 "
+          f"launches (want {want}); counts differ by {dv:.2e} / {dt:.2e}; "
+          f"mean nearest-vertex distance {dist:.3e} m (voxel {voxel:.4f} "
+          f"m); eval mesh {len(meshes['final_mesh_eval_rec.ply'][0])} "
+          f"verts", flush=True)
+    if k5 != want or dv > MESH_COUNT_REL or dt > MESH_COUNT_REL \
+            or not dist < 0.5 * voxel:
+        fail(f"mesh: K5 launches {k5} (want {want}), counts {dv} / {dt}, "
+             f"distance {dist}")
 
 
 def phase_system(torch):
@@ -760,7 +1129,11 @@ def phase_system(torch):
     print(f"system: room_bench 680x1200, frames 0..5, iters_first "
           f"{cfg['mapping']['iters_first']}, colour refine off (cut); "
           f"widths uncut", flush=True)
-    slam = PointNeRFSLAM(cfg, n_frames_cap=6, device="cuda")
+    from pointnerf_slam_torch.outputs import attach_outputs
+    slam = PointNeRFSLAM(cfg, n_frames_cap=6, device="cuda",
+                         output=os.path.join(HERE, "output", "chip_smoke",
+                                             "room_bench"))
+    attach_outputs(slam)
     t0 = time.time()
     slam.run(on_frame=lambda s, idx: print(
         "system: " + frame_line(s.frame_log[-1]), flush=True))
@@ -1014,6 +1387,8 @@ def phase_kernels_map(torch, slam, report):
         return frame_rays(torch, slam, last, n, gen)[:3]
 
     phase_kernels_mk(torch, report, dec, "map", rays_of, bound, 2 * p1_err)
+    phase_kernels_mlp(torch, report, dec, "map",
+                      lambda n: frame_rays(torch, slam, last, n, gen), bound)
 
 
 def phase_kernels_dynamic(torch, slam, report):
@@ -1074,13 +1449,18 @@ def main() -> int:
     # each path from counts of 0, read right after it; the kernels each
     # path must launch
     counts = {k: 0 for k in F.launches}
+    by_path = {k: {} for k in F.launches}
     k1 = ("p1_sigma", "fused_vg_mapper", "fused_vg_tracker")
+    mk = ("megakernel_fwd", "megakernel_bwd")
     paths = (("sensor", lambda: (phase_engine(torch), phase_system(torch))[1],
               k1),
+             ("mesh", lambda: phase_mesh(torch, slam), ("fused_mlp_fwd",)),
+             ("plain", lambda: phase_engine_plain(torch),
+              ("fused_mlp_fwd", "fused_mlp_bwd")),
+             ("mapper two-kernel", lambda: phase_mapper_mk(torch), mk),
              ("weak", lambda: phase_weak(torch), k1),
              ("dynamic", lambda: phase_dynamic(torch),
-              ("p1_sigma", "fused_vg_mapper", "megakernel_fwd",
-               "megakernel_bwd")))
+              ("p1_sigma", "fused_vg_mapper") + mk))
     for label, run, must in paths:
         F.reset_launches()
         out = run()
@@ -1091,6 +1471,8 @@ def main() -> int:
                 fail(f"kernel {k} never launched on the {label} path")
         for k in counts:
             counts[k] += got[k]
+            if got[k]:
+                by_path[k][label] = got[k]
         if label == "sensor":
             slam = out
         elif label == "dynamic":
@@ -1102,7 +1484,8 @@ def main() -> int:
     phase_track_check(torch, slam)
     phase_kernels_map(torch, slam, report)
     phase_kernels_dynamic(torch, dyn, report)
-    print(json.dumps({"kernels": [dict(name=k, launches=counts[k], **v)
+    print(json.dumps({"kernels": [dict(name=k, launches=counts[k],
+                                       launches_by_path=by_path[k], **v)
                                   for k, v in report.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -54,7 +54,8 @@ class EngineConfig:
     frustum_feature_selection: bool = False
     occupancy: bool = False
     # "auto"/"on": the fused kernels (K1/K2, and the K3/K4 pair where the
-    # tracker needs it); "off" (the plain renderer) is not ported
+    # sampling or the loss needs it); "off": the plain renderer (its
+    # decoder on K5/K6 when MLPConfig.fused)
     megakernel: str = "auto"
     sync_method: str = "loose"
     fix_fine: bool = True

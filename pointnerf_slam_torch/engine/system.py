@@ -34,10 +34,14 @@ Per-frame schedule (the JAX reference's engine/system.py):
 Frames go to the device once each, quantised to u8 colour and u16 depth
 (step depth_max / 65535) as the keyframe store holds them.
 
+Outputs: with outputs.attach_outputs(slam) the mesher runs after every
+frame (mesh cadence, final and eval meshes into <output>/mesh/); output
+is data.output, or the `output` argument.
+
 Not ported yet (each raises NotImplementedError): NICE and SuperPoint
-(ROADMAP Queue 1 item 11), logger and checkpoints (item 9), mesher (item
-10), multi-device mapping (item 11), 'overlap' keyframe selection and
-frustum feature masks (item 11).
+(ROADMAP Queue 1 item 11), multi-device mapping (item 11), 'overlap'
+keyframe selection and frustum feature masks (item 11); the checkpoint
+logger (item 9) is not wired.
 """
 
 from __future__ import annotations
@@ -66,12 +70,14 @@ def random_select(length, k, rng: np.random.Generator):
 
 class PointNeRFSLAM:
     def __init__(self, cfg: dict | str, args=None, n_frames_cap=None,
-                 device=None):
+                 device=None, output: str | None = None):
         if isinstance(cfg, str):
             cfg = load_config(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.scale = cfg["scale"]
+        self.output = output or cfg["data"]["output"]
+        self.mesher = None             # outputs.attach_outputs wires it
         if cfg.get("nice", False):
             raise NotImplementedError(
                 "NICE mode is not ported yet (ROADMAP Queue 1 item 11)")
@@ -514,7 +520,12 @@ class PointNeRFSLAM:
         for idx in range(start_idx, self.n_img):
             _, color, depth, gt_c2w = self.frame_reader[idx]
             self.step(idx, color, depth, gt_c2w)
+            if self.mesher is not None:
+                self.mesher.maybe_mesh(self, idx)
             if on_frame is not None:
                 on_frame(self, idx)
+        if self.mesher is not None:
+            # a run that ends mid-job finishes its periodic mesh
+            self.mesher.flush(self)
         return self.estimate_c2w_list, self.gt_c2w_list
 

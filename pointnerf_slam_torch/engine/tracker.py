@@ -7,17 +7,25 @@ Loss per iteration:
   m = D > 0; with tracking.handle_dynamic also
   |D - D_hat| / sqrt(Var + 1e-10) < 10 * median over the whole batch.
 
-Two paths, as the JAX reference's engine/tracker.py:
-  - fused value-and-grad (depth loss, no handle_dynamic): the K1/K2
-    kernels with camera-only gradients; resample-every-K (one pixel batch
-    and one importance z2, prepared at the round's first camera, per K
-    iterations; rays rebuilt from the live camera every iteration).
-  - two-kernel (handle_dynamic, or colour-only): the dynamic-pixel median
-    is cross-ray state the fused loss cannot see, so each iteration renders
-    its own pixel batch with the megakernel pair (K3 forward, K4 backward,
-    ops/megakernel.py, no regulation pass) and computes the loss in torch;
-    autograd chains K4's ray gradients to the camera.
-In both the camera gradient reaches the pose through ray generation by
+Three paths, chosen as the JAX reference's engine/tracker.py chooses
+(`rendering.megakernel` "auto" and "on" both mean the kernels here):
+  - fused value-and-grad (depth loss, no handle_dynamic, the sampling K1
+    takes): the K1/K2 kernels with camera-only gradients;
+    resample-every-K (one pixel batch and one importance z2, prepared at
+    the round's first camera, per K iterations; rays rebuilt from the
+    live camera every iteration).
+  - two-kernel (handle_dynamic, colour-only, or sampling past K1's cover):
+    the dynamic-pixel median is cross-ray state the fused loss cannot see,
+    so each iteration renders its own pixel batch with the megakernel pair
+    (K3 forward, K4 backward, ops/megakernel.py, no regulation pass) and
+    computes the loss in torch; autograd chains K4's ray gradients to the
+    camera.
+  - plain (`megakernel: off`, or a decoder or sampling the kernels do not
+    cover): render.renderer.render_rays on the live camera with autograd
+    to it, one pixel batch per iteration; the decoder runs through
+    models.decoders.decoder_apply, so MLPConfig.fused evaluates it with
+    K5 and backpropagates with K6 (dx only: no parameter gradient).
+In each the camera gradient reaches the pose through ray generation by
 autograd, and the candidate kept for a loss is the PRE-step camera (the one
 the loss was evaluated at). `seperate_LR`: the quaternion gets lr * 0.2.
 
@@ -32,9 +40,11 @@ import torch
 from ..core.rays import (gather_pixels, rays_from_uv, sample_uv_uniform,
                          sample_uv_valid)
 from ..core.se3 import camera_from_tensor
-from ..ops.fused_vg import (fused_vg_loss, make_fused_vg_split, params_of,
-                            supports_fused_vg)
+from ..models.decoders import decoder_apply
+from ..ops.fused_vg import (fused_vg_loss, make_fused_vg_split,
+                            supports_fused_vg, supports_megakernel)
 from ..ops.megakernel import make_fused_render
+from ..render.renderer import render_rays
 from .state import Draws, EngineConfig
 
 
@@ -47,18 +57,25 @@ def median_of(x: torch.Tensor) -> torch.Tensor:
 
 
 def make_tracking_step(model_cfg, rcfg, ecfg: EngineConfig):
-    if ecfg.megakernel == "off" or not supports_fused_vg(model_cfg, rcfg):
-        raise NotImplementedError(
-            "tracking off the fused kernels (megakernel: off, or a decoder "
-            "or sampling the kernels do not cover) is not ported (ROADMAP "
-            "Queue 1 item 11)")
     H, W = ecfg.H, ecfg.W
     He, We = ecfg.ignore_edge_H, ecfg.ignore_edge_W
     n_rays = ecfg.tracking_pixels
-    two_kernel = ecfg.handle_dynamic or not ecfg.depth_supervision
-    if two_kernel:
-        render = make_fused_render(rcfg, with_reg=False)
-        K = 1
+    use_mega = (ecfg.megakernel != "off"
+                and supports_megakernel(model_cfg, rcfg))
+    use_vg = (use_mega and supports_fused_vg(model_cfg, rcfg)
+              and ecfg.depth_supervision and not ecfg.handle_dynamic)
+    per_iter = not use_vg          # one pixel batch per iteration
+    K = 1
+    if use_mega and not use_vg:
+        fused_render = make_fused_render(rcfg, with_reg=False)
+
+        def render(params, ro, rd, gt_d, bound):
+            t0 = torch.zeros(n_rays, rcfg.N_samples, device=ro.device)
+            return fused_render(params, ro, rd, gt_d, t0, bound)[:3]
+    elif not use_mega:
+        def render(params, ro, rd, gt_d, bound):
+            return render_rays(lambda x: decoder_apply(model_cfg, params, x),
+                               rcfg, ro, rd, bound, gt_d)[:3]
     else:
         prep, main = make_fused_vg_split(
             rcfg, "tracker", ecfg.w_color_loss_t,
@@ -68,8 +85,7 @@ def make_tracking_step(model_cfg, rcfg, ecfg: EngineConfig):
             K = 1
 
     def render_loss(params, ro, rd, gt_d, gt_c, bound):
-        t0 = torch.zeros(n_rays, rcfg.N_samples, device=ro.device)
-        dep, var, col, _ = render(params, ro, rd, gt_d, t0, bound)
+        dep, var, col = render(params, ro, rd, gt_d, bound)
         var = var.detach()
         if ecfg.handle_dynamic:
             tmp = (gt_d - dep).abs() / torch.sqrt(var + 1e-10)
@@ -98,7 +114,7 @@ def make_tracking_step(model_cfg, rcfg, ecfg: EngineConfig):
             def sample(gen):
                 return sample_uv_uniform(gen, W, He, H - He, We, W - We,
                                          n_rays)
-        params = {k: v.detach() for k, v in params_of(decoder).items()}
+        params = {k: v.detach() for k, v in decoder.named_parameters()}
         cam0 = cam_tensor.detach().to(torch.float32)
         quad = cam0[:4].clone().requires_grad_(True)
         trans = cam0[4:].clone().requires_grad_(True)
@@ -117,7 +133,7 @@ def make_tracking_step(model_cfg, rcfg, ecfg: EngineConfig):
                 return rays_from_uv(i, j, camera_from_tensor(cam), ecfg.fx,
                                     ecfg.fy, ecfg.cx, ecfg.cy)
 
-            if not two_kernel:
+            if not per_iter:
                 ones = torch.ones_like(gt_d)
                 with torch.no_grad():
                     ro0, rd0 = rays_of(torch.cat([quad, trans]))
@@ -125,7 +141,7 @@ def make_tracking_step(model_cfg, rcfg, ecfg: EngineConfig):
             for _ in range(K):
                 cam = torch.cat([quad, trans])
                 ro, rd = rays_of(cam)
-                if two_kernel:
+                if per_iter:
                     loss = render_loss(params, ro, rd, gt_d, gt_c, bound)
                 else:
                     loss = fused_vg_loss(main, decoder, ro, rd, gt_d, gt_c,

@@ -40,6 +40,9 @@ class MLPConfig:
     # "bfloat16": hidden and head products take bf16-rounded operands and
     # accumulate in float32, the numerics of the fused kernels
     compute_dtype: str = "float32"
+    # K5/K6 (ops/fused_mlp.py) where supports_fused holds; a library-level
+    # switch as in the JAX reference (get_model leaves it False, no YAML key)
+    fused: bool = False
 
     @property
     def embedding_size(self) -> int:
@@ -80,6 +83,18 @@ def mlp_apply(p: dict, x: torch.Tensor, bf16: bool = False) -> torch.Tensor:
     return r(h) @ r(p["out.w"]) + p["out.b"]
 
 
+def decoder_apply(cfg: MLPConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The decoder of config `cfg` as a function of its state_dict-named
+    tensors `p`: the K5/K6 kernel pair (ops.fused_mlp.fused_imap_mlp) when
+    cfg.fused and the kernels cover cfg, else mlp_apply (the JAX
+    reference's apply_mlp rule)."""
+    if cfg.fused:     # imported here: ops/ imports this module
+        from ..ops.fused_mlp import fused_imap_mlp, supports_fused
+        if supports_fused(cfg):
+            return fused_imap_mlp(p, x)
+    return mlp_apply(p, x, cfg.compute_dtype == "bfloat16")
+
+
 class IMAPDecoder(nn.Module):
     """Points (N, 3) -> raw RGBA (N, 4) (sigma in column 3)."""
 
@@ -102,8 +117,7 @@ class IMAPDecoder(nn.Module):
                          device)
 
     def forward(self, p: torch.Tensor) -> torch.Tensor:
-        return mlp_apply(dict(self.named_parameters()), p,
-                         self.cfg.compute_dtype == "bfloat16")
+        return decoder_apply(self.cfg, dict(self.named_parameters()), p)
 
 
 def get_model(cfg: dict, nice: bool = False):

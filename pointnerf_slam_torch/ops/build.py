@@ -18,7 +18,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))), "build", "torch_kernels")
-SOURCES = ("p1_sigma", "fused_vg", "megakernel")
+SOURCES = ("p1_sigma", "fused_vg", "megakernel", "fused_mlp")
 # -fmad=false: no multiply-add contraction beyond the explicit __fmaf_rn
 # calls, so elementwise float math rounds as the plain PyTorch versions do
 # (points, depths and x . B feed a bf16 rounding, where one ulp matters)

@@ -1,4 +1,5 @@
-// Shared pieces of the iMAP* decoder kernels (p1_sigma.cu, fused_vg.cu).
+// Shared pieces of the iMAP* decoder kernels (p1_sigma.cu, fused_vg.cu,
+// megakernel.cu, fused_mlp.cu).
 //
 // Decoder: emb = sin(x . B) (x . B in float32 FMAs, never TF32/bf16), then
 // four 256-wide ReLU layers and a 4-wide RGBA head. Hidden and head

@@ -1,5 +1,7 @@
 // Device code shared by the fused value-and-grad kernel (fused_vg.cu, K1)
-// and the render megakernel pair (megakernel.cu, K3/K4): the forward over
+// and the render megakernel pair (megakernel.cu, K3/K4), whose chain and
+// weight gradients the decoder backward (fused_mlp.cu, K6) also runs: the
+// forward over
 // the merged z2 (and regulation) points with its optional bf16 activation
 // spill, the per-ray composite and its hand-written VJP, the dh chain over
 // the spilled activations, the split-K weight gradients with their ordered
@@ -495,20 +497,19 @@ cudaError_t launch_chain(const Weights& w, const WS& ws, int ntiles,
     if (e_ != cudaSuccess) return e_;           \
   } while (0)
 
-// Everything after the head cotangents (ws.dhead, ws.gdvec) are written:
-// the dh chain, then (param_grads) the weight gradients into `grads` and
-// (with_dray) d(loss)/d(rays) into `dray` (zeros without).
-inline cudaError_t run_backward(const Weights& w, const WS& ws, int n,
-                                int SP, int param_grads, int with_dray,
-                                float* dray, float* grads,
-                                cudaStream_t stream) {
+// The dh chain over the spilled activations once the head cotangents
+// (ws.dhead) are written: per-point dx into ws.dx (with_dx), then
+// (param_grads) the weight gradients into `grads`.
+inline cudaError_t chain_and_wgrad(const Weights& w, const WS& ws,
+                                   int param_grads, int with_dx,
+                                   float* grads, cudaStream_t stream) {
   const int ntiles = (int)(ws.Ppad / TILE_M);
   const int nblk = ntiles < CHAIN_BLOCKS ? ntiles : CHAIN_BLOCKS;
-  if (param_grads && with_dray)
+  if (param_grads && with_dx)
     CK((launch_chain<true, true>(w, ws, ntiles, nblk, stream)));
   else if (param_grads)
     CK((launch_chain<true, false>(w, ws, ntiles, nblk, stream)));
-  else if (with_dray)
+  else if (with_dx)
     CK((launch_chain<false, true>(w, ws, ntiles, nblk, stream)));
 
   if (param_grads) {
@@ -527,6 +528,17 @@ inline cudaError_t run_backward(const Weights& w, const WS& ws, int n,
       CK(cudaGetLastError());
     }
   }
+  return cudaSuccess;
+}
+
+// Everything after the head cotangents (ws.dhead, ws.gdvec) are written:
+// chain_and_wgrad, then (with_dray) d(loss)/d(rays) into `dray` (zeros
+// without).
+inline cudaError_t run_backward(const Weights& w, const WS& ws, int n,
+                                int SP, int param_grads, int with_dray,
+                                float* dray, float* grads,
+                                cudaStream_t stream) {
+  CK(chain_and_wgrad(w, ws, param_grads, with_dray, grads, stream));
   if (with_dray) {
     vg_dray<<<(n + 127) / 128, 128, 0, stream>>>(ws.x4, ws.dx, ws.gdvec,
                                                  dray, n, SP);

@@ -59,7 +59,8 @@ HID = 256
 
 # kernel launches since the last reset, by wrapper (chip_smoke reads these)
 launches = {"p1_sigma": 0, "fused_vg_mapper": 0, "fused_vg_tracker": 0,
-            "megakernel_fwd": 0, "megakernel_bwd": 0}
+            "megakernel_fwd": 0, "megakernel_bwd": 0, "fused_mlp_fwd": 0,
+            "fused_mlp_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -71,8 +72,14 @@ def reset_launches() -> None:
 MAX_SAMPLES = 64
 
 
-def supports_fused_vg(model_cfg, rcfg) -> bool:
-    """The kernels cover the iMAP* flagship decoder and sampling."""
+# points per ray (pass 2 + regulation) fused value-and-grad takes: the JAX
+# reference's cap (ops/fused_vg.py _MAX_PTS / TILE), kept so that both
+# packages send a configuration down the same engine branch
+MAX_VG_POINTS = 100
+
+
+def supports_megakernel(model_cfg, rcfg) -> bool:
+    """The kernels (K1-K4) cover the iMAP* flagship decoder and sampling."""
     return (model_cfg.c_dim == 0 and model_cfg.color
             and rcfg.N_samples + rcfg.N_importance <= MAX_SAMPLES
             and model_cfg.pos_embedding_method == "fourier"
@@ -81,6 +88,13 @@ def supports_fused_vg(model_cfg, rcfg) -> bool:
             and rcfg.N_surface == 0 and rcfg.perturb == 0.0
             and not rcfg.lindisp and not rcfg.occupancy
             and rcfg.N_importance > 0)
+
+
+def supports_fused_vg(model_cfg, rcfg) -> bool:
+    """Fused value-and-grad (K1) takes the configuration: the megakernel's
+    cover, at most MAX_VG_POINTS points per ray."""
+    return (supports_megakernel(model_cfg, rcfg)
+            and 2 * rcfg.N_samples + rcfg.N_importance <= MAX_VG_POINTS)
 
 
 def _path(*tensors) -> str:

@@ -44,12 +44,10 @@ from ..render.renderer import clip_far
 from . import build
 from .fused_vg import (GRAD_LEN, PARAM_NAMES, _check, _inside, _path,
                        _stream, _unpack_grads, launches, pack_weights,
-                       params_of, supports_fused_vg)
+                       params_of)
+from .fused_vg import supports_megakernel  # noqa: F401 (the cover, here
+#                                            as in the JAX reference)
 from .render_math import importance_z2, reg_zvals, weights, z_pass1
-
-# the megakernel covers the same decoder and sampling as fused value-and-
-# grad (the JAX reference's supports_megakernel)
-supports_megakernel = supports_fused_vg
 
 
 def plain_z2(params: dict, rays_o, rays_d, gt_d, bound, S1: int, SI: int):

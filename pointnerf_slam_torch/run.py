@@ -1,7 +1,7 @@
 """Run the port's SLAM system on a config.
 
   python -m pointnerf_slam_torch.run <config> [--max_frames N]
-                                     [--device cuda|cpu]
+                                     [--device cuda|cpu] [--output DIR]
 
 Runs sensor-depth and weak-depth (RGB-only) configs. Prints, per processed
 frame, the tracking loss (first -> best), the camera error against gt
@@ -10,12 +10,17 @@ seconds of the front-end, tracking and mapping (on the card also each
 phase's time between its events on the stream), and the mapping loss
 (first -> last); at the end the translation RMSE and max of all
 estimated poses against gt, unaligned and Horn-aligned (the ATE of the
-JAX reference's tools/eval_ate.py).
+JAX reference's tools/eval_ate.py). Meshes go to <output>/mesh/ (output:
+--output, else the config's data.output): one every mapping.mesh_freq
+frames, and at the last frame `final_mesh.ply` and, with
+meshing.eval_rec, `final_mesh_eval_rec.ply`, in the reference's PLY
+format (the JAX reference's tools/eval_recon.py scores them).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -23,6 +28,7 @@ import torch
 
 from .engine import PointNeRFSLAM
 from .io.config import load_config
+from .outputs import attach_outputs
 
 
 def frame_line(rec: dict) -> str:
@@ -77,10 +83,13 @@ def main(argv=None) -> int:
     ap.add_argument("config")
     ap.add_argument("--max_frames", type=int, default=None)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--output", type=str, default=None,
+                    help="output folder, overrides the config's")
     args = ap.parse_args(argv)
     cfg = load_config(args.config)
     slam = PointNeRFSLAM(cfg, n_frames_cap=args.max_frames,
-                         device=args.device)
+                         device=args.device, output=args.output)
+    attach_outputs(slam)
     t0 = time.time()
 
     def on_frame(s, idx):
@@ -95,7 +104,8 @@ def main(argv=None) -> int:
           f"on {slam.device}; translation RMSE against gt over all frames "
           f"(unaligned) {err['rmse']:.4f} m, max {err['max']:.4f} m; "
           f"Horn-aligned (ATE) RMSE {err['ate_rmse']:.4f} m, max "
-          f"{err['ate_max']:.4f} m")
+          f"{err['ate_max']:.4f} m; meshes in "
+          f"{os.path.join(slam.output, 'mesh')}")
     return 0
 
 

@@ -12,7 +12,9 @@ norm ratio in [0.98, 1.02] on the rays off the loss kinks (for the
 tracker also on those with var >= 1e-4); depth and colour within 1e-3 on
 >= 95% of rays and within 2e-2 on every ray off the last-interval step;
 sigma within 2e-2 * max|sigma| and within 1e-3 * (1 + |sigma|) on
->= 95%."""
+>= 95%. K5/K6 (`check_mlp`): the decoder's output within 1e-3 (1 + |raw|)
+on >= 98% of values and 2e-2 max|raw| on all; dx and every parameter
+gradient by cosine >= 0.9999 and norm ratio within 1e-3."""
 
 import numpy as np
 import pytest
@@ -168,3 +170,58 @@ def test_cuda_megakernel_tracker_shape(cuda, mapped):
     S.check_render(torch, "test 24+8", dec, rays[0], rays[1], rays[2],
                    rays[5][:, :24].contiguous(), b, False, noise, S1=24,
                    SI=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 700, 1025])
+def test_cuda_fused_mlp_tail_tiles(cuda, n):
+    """K5/K6 at the tile edges (64-point tiles; K6 pads to 1024 points)."""
+    dec, _, _ = setup(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.rand(n, 3, generator=gen, device=cuda) * 4 - 2
+    g = torch.randn(n, 4, generator=gen, device=cuda)
+    before = (F.launches["fused_mlp_fwd"], F.launches["fused_mlp_bwd"])
+    S.check_mlp(torch, f"test {n}", {k: v.detach() for k, v in
+                                     F.params_of(dec).items()}, x, g)
+    assert F.launches["fused_mlp_fwd"] == before[0] + 1
+    assert F.launches["fused_mlp_bwd"] == before[1] + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mapped", [False, True])
+def test_cuda_fused_mlp_mapper_shape(cuda, mapped):
+    """K5 at the mapper's plain-path shape (4998 rays x (32 + 44 + 32) =
+    539,784 points along rays) and K6 at the points its loss reaches
+    (379,848) with the loss's own cotangent (chip_smoke's
+    plain_mapper_points)."""
+    dec, rays, b = setup(cuda, n=4998, mapped=mapped)
+    params = {k: v.detach() for k, v in F.params_of(dec).items()}
+    x_all, x_live, g = S.plain_mapper_points(torch, params, rays[0], rays[1],
+                                             rays[2], rays[3], rays[4],
+                                             rays[5], b)
+    assert x_all.shape[0] == 539784 and x_live.shape[0] == 379848
+    S.check_mlp(torch, "test mapper", params, x_all)
+    S.check_mlp(torch, "test mapper loss", params, x_live, g)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_decoder_autograd(cuda):
+    """IMAPDecoder(fused=True) on the card launches K5 forward and K6
+    backward through autograd, and its gradients are the direct K6 call's."""
+    import dataclasses
+    dec, _, _ = setup(cuda)
+    dec.cfg = dataclasses.replace(dec.cfg, fused=True)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = (torch.rand(3000, 3, generator=gen, device=cuda) * 4 - 2
+         ).requires_grad_(True)
+    g = torch.randn(3000, 4, generator=gen, device=cuda)
+    before = (F.launches["fused_mlp_fwd"], F.launches["fused_mlp_bwd"])
+    dec(x).backward(g)
+    assert F.launches["fused_mlp_fwd"] == before[0] + 1
+    assert F.launches["fused_mlp_bwd"] == before[1] + 1
+    from pointnerf_slam_torch.ops.fused_mlp import k6_backward
+    params = {k: v.detach() for k, v in F.params_of(dec).items()}
+    dx, dps = k6_backward(params, x.detach(), g, True, True)
+    assert torch.equal(x.grad, dx)
+    for k, p in F.params_of(dec).items():
+        assert torch.equal(p.grad, dps[k]), k

@@ -289,3 +289,141 @@ def test_median_of_takes_the_mean_of_the_middle_pair():
     x = torch.tensor([4.0, 1.0, 3.0, 2.0])
     assert float(median_of(x)) == float(np.median(x.numpy())) == 2.5
     assert float(median_of(x[:3])) == 3.0
+
+
+def per_iter_mapper_draws(key, max_frames, iters):
+    """The reference mapper's draws off fused value-and-grad (mapper.py
+    body -> loss_fn, one pixel batch per iteration): per iteration key k,
+    pixels from split(k, F + 1)[:F], t_reg from the second half of the
+    last key (the regulation uniforms, or K3's t_reg)."""
+    ppf = N_MAP // max_frames
+    out = []
+    for k in jax.random.split(key, iters):
+        ks = jax.random.split(k, max_frames + 1)
+        out.append(torch.stack([
+            T(sample_uv_uniform(ks[f], W, 0, H, 0, W, ppf)).long()
+            for f in range(max_frames)]))
+        _, k_reg = jax.random.split(ks[-1])
+        out.append(T(jax.random.uniform(k_reg, (ppf * max_frames, SR))))
+    return out
+
+
+def field_change(tree, p_j, dec, jcfg):
+    """(cosine, norm ratio) of the port's and the reference's change of the
+    decoder output at points of the mapped volume."""
+    from pointnerf_slam_tpu.models.decoders import apply_mlp
+    pts = np.random.default_rng(3).uniform(-0.4, 0.4, (512, 3)) + [0, 0, 1]
+    pts = pts.astype(np.float32)
+    f0 = np.asarray(apply_mlp(tree, jcfg, pts), np.float64)
+    d_j = np.asarray(apply_mlp(p_j, jcfg, pts), np.float64) - f0
+    with torch.no_grad():
+        d_t = dec(T(pts)).numpy().astype(np.float64) - f0
+    cos = (d_t * d_j).sum() / (np.linalg.norm(d_t) * np.linalg.norm(d_j))
+    return cos, np.linalg.norm(d_t) / np.linalg.norm(d_j)
+
+
+@pytest.mark.parametrize("w_beyond,n_samples,n_importance,megakernel", [
+    (1.0, 32, 12, "off"), (0.0, 32, 12, "off"), (0.0, 40, 24, "on")])
+def test_mapper_off_fused_vg_matches_reference(w_beyond, n_samples,
+                                               n_importance, megakernel):
+    """The mapper's plain branch (megakernel off: render_rays with the
+    beyond term from its weights and z, then regulation at the replayed
+    t_reg; fused False, the reference's XLA numerics) and its two-kernel
+    branch (40 + 24 samples: 104 points per ray with regulation, past
+    fused value-and-grad's cover, w_beyond_loss 0: K3/K4, here their plain
+    versions, against the reference's Pallas pair in interpret mode), with
+    the reference's draws replayed: per-iteration losses rtol 2e-2 and the
+    change of the learned field as in the fused test."""
+    jcfg = JCfg(dim=3, c_dim=0, color=True, hidden_size=256, skips=(),
+                n_blocks=4)
+    tree = jax.tree_util.tree_map(np.asarray,
+                                  init_mlp(jax.random.PRNGKey(5), jcfg))
+    dec = IMAPDecoder(MLPConfig())
+    dec.load_state_dict(params_from_jax(tree))
+    rng = np.random.default_rng(5)
+    colors = (rng.uniform(size=(F, H, W, 3)) * 255).astype(np.uint8)
+    depths = rng.uniform(0.5, 3.0, (F, H, W)).astype(np.float32)
+    cams = np.array([[1.0, 0, 0, 0, 0, 0, 2.5],
+                     [1.0, 0.01, 0, 0, 0.02, 0, 2.5]], np.float32)
+    valid = np.ones(F, bool)
+    ba = np.zeros(F, bool)
+    cfg = dict(ECFG, fused_outer=False, w_beyond_loss=w_beyond,
+               megakernel=megakernel)
+    jrc = JRC(N_samples=n_samples, N_importance=n_importance)
+    trc = RenderConfig(N_samples=n_samples, N_importance=n_importance)
+    key = jax.random.PRNGKey(8)
+    p_j, _, _, ml_j = j_mapper(jcfg, jrc, JEC(**cfg), F)(
+        tree, {}, colors, depths, cams, valid, ba, BOUND, key, MAP_ITERS)
+    _, ml_t = make_mapper_step(MLPConfig(), trc, EngineConfig(**cfg), F)(
+        dec, T(colors), T(depths), T(cams), T(valid), T(ba), T(BOUND),
+        Draws(replay=per_iter_mapper_draws(key, F, MAP_ITERS)), MAP_ITERS)
+    assert ml_t.shape == (MAP_ITERS,)
+    np.testing.assert_allclose(ml_t.numpy(), np.asarray(ml_j), rtol=2e-2)
+    cos, ratio = field_change(tree, p_j, dec, jcfg)
+    assert cos > 0.98 and 0.9 <= ratio <= 1.1, (cos, ratio)
+
+
+def test_plain_tracker_matches_reference():
+    """The tracker's plain branch (megakernel off, fused False: render_rays
+    with autograd to the camera, one pixel batch per iteration) against
+    the reference's XLA tracker, draws replayed: first and best loss rtol
+    2e-2, best camera within one Adam step (1e-3) per component."""
+    jcfg = JCfg(dim=3, c_dim=0, color=True, hidden_size=256, skips=(),
+                n_blocks=4)
+    tree = jax.tree_util.tree_map(np.asarray,
+                                  init_mlp(jax.random.PRNGKey(0), jcfg))
+    dec = IMAPDecoder(MLPConfig())
+    dec.load_state_dict(params_from_jax(tree))
+    rng = np.random.default_rng(9)
+    color = rng.uniform(size=(H, W, 3)).astype(np.float32)
+    depth = rng.uniform(0.5, 3.0, (H, W)).astype(np.float32)
+    cam0 = np.array([1.0, 0.01, 0, 0, 0.02, 0, 2.5], np.float32)
+    cfg = dict(ECFG, megakernel="off")
+    key = jax.random.PRNGKey(3)
+    bc_j, bl_j, fl_j = j_tracker(jcfg, JRC(), JEC(**cfg))(
+        tree, {}, cam0, color, depth, BOUND, key)
+    bc_t, bl_t, fl_t, losses_t = make_tracking_step(
+        MLPConfig(), RenderConfig(), EngineConfig(**cfg))(
+        dec, T(cam0), T(color), T(depth), T(BOUND),
+        Draws(replay=two_kernel_draws(key, depth, False, TRACK_ITERS)))
+    assert losses_t.shape == (TRACK_ITERS,)
+    assert dec.layers[0].w.grad is None        # no decoder gradient
+    np.testing.assert_allclose(float(fl_t), float(fl_j), rtol=2e-2)
+    np.testing.assert_allclose(float(bl_t), float(bl_j), rtol=2e-2)
+    np.testing.assert_allclose(bc_t.numpy(), np.asarray(bc_j), atol=1e-3)
+
+
+def test_engine_dispatch_follows_the_reference(monkeypatch):
+    """Which branch each configuration takes: fused value-and-grad for the
+    flagship, K3/K4 past its point cap (w_beyond 0) or for handle_dynamic,
+    plain for megakernel off or past the cap with the beyond term."""
+    import pointnerf_slam_torch.engine.mapper as M
+    import pointnerf_slam_torch.engine.tracker as Tr
+    from pointnerf_slam_torch.ops.fused_vg import (supports_fused_vg,
+                                                   supports_megakernel)
+    wide = RenderConfig(N_samples=40, N_importance=24)
+    assert supports_megakernel(MLPConfig(), wide)
+    assert not supports_fused_vg(MLPConfig(), wide)
+    assert supports_fused_vg(MLPConfig(), RenderConfig())
+    assert supports_fused_vg(MLPConfig(), RenderConfig(N_samples=24,
+                                                       N_importance=8))
+    seen = []
+    for mod in (M, Tr):
+        for name in ("make_fused_vg_split", "make_fused_render"):
+            monkeypatch.setattr(mod, name, lambda *a, _n=name, **k:
+                                seen.append(_n) or (None, None))
+    vg, mk = "make_fused_vg_split", "make_fused_render"
+    cases = [(dict(), RenderConfig(), vg, vg),
+             (dict(w_beyond_loss=0.0), wide, mk, mk),
+             (dict(), wide, None, mk),
+             (dict(megakernel="off"), RenderConfig(), None, None),
+             (dict(handle_dynamic=True), RenderConfig(), vg, mk)]
+    for over, rc, want_m, want_t in cases:
+        e = EngineConfig(**dict(ECFG, **over))
+        for make, want in ((lambda: M.make_mapper_step(MLPConfig(), rc, e,
+                                                       F), want_m),
+                           (lambda: Tr.make_tracking_step(MLPConfig(), rc,
+                                                          e), want_t)):
+            seen.clear()
+            make()
+            assert seen == ([want] if want else []), (over, rc, seen)

@@ -121,9 +121,9 @@ def test_cuda_request_without_card_raises():
     (lambda c: c["mapping"].update(keyframe_selection_method="overlap"),
      "overlap"),
     (lambda c: c.update(parallel={"data_devices": 4}), "multi-device"),
-    # more samples per ray than the fused kernels hold: the reference's
-    # mapper and tracker would take its plain or megakernel branch
-    (lambda c: c["rendering"].update(N_samples=96), "item 11"),
+    # frustum feature masks (the mapper's grid masks, NICE's)
+    (lambda c: c["mapping"].update(frustum_feature_selection=True),
+     "item 11"),
     (lambda c: c["data"].update(dataset="replica"), "not ported"),
 ])
 def test_unported_modes_raise(edit, match):
@@ -131,6 +131,21 @@ def test_unported_modes_raise(edit, match):
     edit(cfg)
     with pytest.raises(NotImplementedError, match=match):
         PointNeRFSLAM(cfg, n_frames_cap=2, device="cpu")
+
+
+@pytest.mark.parametrize("edit", [
+    # more samples per ray than the kernels hold
+    lambda c: c["rendering"].update(N_samples=96),
+    lambda c: c["rendering"].update(megakernel="off")])
+def test_plain_renderer_configs_build(edit):
+    """Sampling past the kernels' cover and `rendering.megakernel: off`
+    take the tracker's and mapper's plain branches (tests/
+    test_torch_engine.py holds them against the reference)."""
+    cfg = box_cfg()
+    edit(cfg)
+    slam = PointNeRFSLAM(cfg, n_frames_cap=2, device="cpu")
+    assert slam.mesher is None and slam.output == cfg["data"]["output"]
+    assert callable(slam.tracking_step)
 
 
 def test_trajectory_errors_match_reference_ate():
