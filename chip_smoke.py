@@ -7,7 +7,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. device: needs CUDA; prints `nvidia-smi --query-gpu=name,power.limit`
   2. build: compiles every kernel from pointnerf_slam_torch/ops/csrc with
      nvcc for sm_90a, one process per source, all started together;
-     prints the seconds and ptxas' register and spill lines
+     prints the seconds, ptxas' register and spill lines and each
+     library's count of HGMMA (wgmma) instructions (cuobjdump -sass);
+     fails if fused_vg or p1_sigma has none
   3. kernels, random cell: at the main paths' shapes (5000 rays, 32+12
      samples, 32 regulation samples, 256-wide MLP) and a random decoder,
      each kernel is held against its plain PyTorch version on the same
@@ -62,8 +64,9 @@ Phases, in order; any failure raises and the script exits non-zero:
  14. kernels, dynamic cell: K2, K3 and K4 again on the decoder phase 10
      mapped, at its tracker's shape (1500 rays, 24+8 samples, no
      regulation, pseudo-depth pixels of its last tracked frame)
- 15. one `{"kernels": [...]}` line (launches per path beside the total),
-     then the device line last.
+ 15. one `{"kernels": [...]}` line (launches per path beside the total;
+     K1 and K2 also with bound_share = bound_ms / ms), then the device
+     line last.
 Nothing here imports JAX or the JAX package.
 """
 
@@ -149,6 +152,19 @@ def bound_ms(flops: float, nbytes: float):
     t_ops, t_bytes = flops / PEAK_BF16, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def hgmma_counts(build, names) -> dict:
+    """{library: count of HGMMA (wgmma) instructions in its SASS}."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = {}
+    for name in names:
+        sass = subprocess.run([tool, "-sass", build._lib_path(name)],
+                              capture_output=True, text=True,
+                              timeout=300).stdout
+        out[name] = sum("HGMMA" in ln for ln in sass.splitlines())
+    return out
 
 
 def rays_batch(torch, gen, n, cams, depth_hi=3.0):
@@ -254,34 +270,57 @@ def check_vg(name, out_k, out_p, spec, inputs, params, sig_noise):
     errs = []
     if abs(float(lk) - float(lp)) > LOSS_RTOL * abs(float(lp)):
         fail(f"{name}: loss {float(lk)} vs {float(lp)}")
+    step = check_rays(torch, name, (ak[0], ak[2]), (ap[0], ap[2]), params,
+                      ro, rd, z2, bound, sig_noise)[0]
+    # A ray at a kink of its loss (an L1 residual whose sign differs
+    # between the two versions, or the last-interval step) has a gradient
+    # that the noise decides; the gradients are judged on the other rays
+    # (for the tracker's ray gradients also on those with var >= 1e-4
+    # alone: var ~ 0 weighs 1/sqrt(1e-10) = 1e5 and would set the sum).
+    kink = step | ((torch.sign(gt_d - ak[0]) != torch.sign(gt_d - ap[0]))
+                   & (gt_d > 0))
+    if spec.with_color:
+        kink |= (torch.sign(gt_c - ak[2]) != torch.sign(gt_c - ap[2])).any(1)
+    # the kinks may hold at most OUT_SHARE of the rays, whichever gradients
+    # are judged off them: a kernel whose depth or colour is biased flips
+    # many residual signs and fails here
+    kink_share = float(kink.float().mean())
+    if kink_share > OUT_SHARE:
+        fail(f"{name}: {kink_share:.4f} of rays at a kink")
     if spec.param_grads:
+        # parameter gradients sum over every ray: read on all rays, then
+        # judged with the kink rays' weight 0 in both versions
+        def rel_errs(gk, gp):
+            return {k: float((gk[k].float() - gp[k].float()).abs().max())
+                    / (float(gp[k].float().abs().max()) + 1e-30) for k in gp}
+        every = rel_errs(gk, gp)
+        w_all = max(every, key=every.get)
+        tag = "all rays"
+        if bool(kink.any()):
+            rw = ray_w.masked_fill(kink, 0.0)
+            off = (ro, rd, gt_d, gt_c, rw, t_reg, z2, bound)
+            gp = F.fused_vg_reference(spec, params, *off)[1]
+            gk = (F._fused_vg_cuda(spec, params, *off)[1] if ro.is_cuda
+                  else gp)
+            tag = f"off {int(kink.sum())} rays at a kink"
+        worst = (0.0, "")
         for k in gp:
             a, b = gk[k].float(), gp[k].float()
             err = float((a - b).abs().max())
             errs.append(err)
+            worst = max(worst, (err / (float(b.abs().max()) + 1e-30), k))
             if err > GRAD_ATOL * float(b.abs().max()) + 1e-8:
-                fail(f"{name}: grad {k} max err {err} vs scale "
+                fail(f"{name}: grad {k} [{tag}] max err {err} vs scale "
                      f"{float(b.abs().max())}")
-    step = check_rays(torch, name, (ak[0], ak[2]), (ap[0], ap[2]), params,
-                      ro, rd, z2, bound, sig_noise)[0]
+        print(f"kernels: {name}: parameter gradients [{tag}] within "
+              f"{GRAD_ATOL} max|g|, largest {worst[0]:.3e} ({worst[1]}); "
+              f"[all rays, read] largest {every[w_all]:.3e} ({w_all})",
+              flush=True)
     if spec.mode == "tracker":
         low = float((ap[1] < VAR_ORDINARY).float().mean())
         print(f"kernels: {name}: {low:.4f} of rays with var < "
               f"{VAR_ORDINARY}, loss {float(lp):.6g}", flush=True)
     if spec.with_ray_grads:
-        # A ray at a kink of its loss (an L1 residual whose sign differs
-        # between the two versions, or the last-interval step) has a
-        # gradient that the noise decides; the gradients are judged on the
-        # other rays, and for the tracker also on those with var >= 1e-4
-        # alone (var ~ 0 weighs 1/sqrt(1e-10) = 1e5 and would set the sum).
-        kink = step | ((torch.sign(gt_d - ak[0]) != torch.sign(gt_d - ap[0]))
-                       & (gt_d > 0))
-        if spec.with_color:
-            kink |= (torch.sign(gt_c - ak[2])
-                     != torch.sign(gt_c - ap[2])).any(1)
-        kink_share = float(kink.float().mean())
-        if kink_share > OUT_SHARE:
-            fail(f"{name}: {kink_share:.4f} of rays at a kink")
         sets = [("all", torch.ones_like(kink), False), ("off kinks", ~kink,
                                                         True)]
         if spec.mode == "tracker":
@@ -306,7 +345,7 @@ def check_vg(name, out_k, out_p, spec, inputs, params, sig_noise):
                 if not (cos > RAY_COS and RAY_RATIO[0] <= ratio
                         <= RAY_RATIO[1]):
                     fail(f"{name}: {nm}[{tag}] cos {cos} ratio {ratio}")
-    return max(errs)
+    return max(errs, default=0.0)
 
 
 # (counter name, mode, options, on the main path): the main path runs the
@@ -367,7 +406,13 @@ def phase_kernels(torch, report):
     T * |rgb|) by no more than 2e-2. Ray gradients: judged off the loss
     kinks, where an L1 residual has the same sign in both versions (the
     kinks may hold at most 5% of rays); per element they are read, not
-    judged (bf16 cotangents move single rays by up to ~10% of max|g|)."""
+    judged (bf16 cotangents move single rays by up to ~10% of max|g|).
+    Parameter gradients are judged the same way: off the kink rays (both
+    versions run again with those rays' weight 0) when there are any,
+    under the same 5% cap, with the all-rays errors printed beside them; a
+    single ray whose depth residual flips sign can move the B and b0
+    gradients past 2e-2 max|g|, in the WMMA and the Hopper K1 alike
+    (PERF.md, Findings)."""
     from pointnerf_slam_torch.models.decoders import IMAPDecoder, MLPConfig
     from pointnerf_slam_torch.ops import fused_vg as F
     dev = torch.device("cuda")
@@ -393,9 +438,9 @@ def phase_kernels(torch, report):
         route="cuda", source="pointnerf_slam_torch/ops/csrc/p1_sigma.cu",
         replaces="pointnerf_slam_tpu/ops/fused_vg.py:284",
         max_abs_err=p1_err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-        library_ms=None)
+        library_ms=None, bound_share=bms / ms)
     print(f"kernels: p1_sigma {ms:.3f} ms (plain {pms:.3f} ms, bound "
-          f"{bms:.4f} ms by {by})", flush=True)
+          f"{bms:.4f} ms by {by}, {100 * bms / ms:.1f}% of it)", flush=True)
 
     # K1: mapper and tracker variants at one z2 each
     for name, mode, kw, on_path in VG_VARIANTS:
@@ -422,9 +467,11 @@ def phase_kernels(torch, report):
                 route="cuda", source="pointnerf_slam_torch/ops/csrc/"
                 "fused_vg.cu", replaces="pointnerf_slam_tpu/ops/"
                 "fused_vg.py:304", max_abs_err=err, ms=ms, plain_ms=pms,
-                bound_ms=bms, bound_by=by, library_ms=None)
+                bound_ms=bms, bound_by=by, library_ms=None,
+                bound_share=bms / ms)
         print(f"kernels: {name} {ms:.3f} ms (plain {pms:.3f} ms, bound "
-              f"{bms:.4f} ms by {by})", flush=True)
+              f"{bms:.4f} ms by {by}, {100 * bms / ms:.1f}% of it)",
+              flush=True)
 
     # K3/K4
     phase_kernels_mk(torch, report, dec, "random",
@@ -1444,6 +1491,12 @@ def main() -> int:
         for ln in log.splitlines():
             if "registers" in ln or "spill" in ln:
                 print(f"build: {name}: {ln.strip()}")
+    hgmma = hgmma_counts(build, logs)
+    print(f"build: HGMMA instructions per library (cuobjdump -sass): "
+          f"{hgmma}", flush=True)
+    for name in ("fused_vg", "p1_sigma"):
+        if not hgmma.get(name):
+            fail(f"build: {name} has no HGMMA (wgmma) instruction")
     report = {}
     phase_kernels(torch, report)
     # each path from counts of 0, read right after it; the kernels each

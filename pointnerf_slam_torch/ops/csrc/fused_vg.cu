@@ -9,37 +9,38 @@
 // The TPU kernel kept a 128-ray tile's activations (9728 points x
 // (4 + 128 + 4*256) values, ~22.6 MB) in VMEM between its forward and
 // backward sweeps. A Hopper block has 227 KB of shared memory, so this
-// version is a short sequence of kernels that SPILL the bf16 activations
-// to device memory instead of recomputing them:
+// version is a short sequence of kernels that spill to device memory:
 //
-//   vg_forward    64-point tiles: x, sin(x.B), 4 bf16 tensor-core layers,
-//                 RGBA head; writes x, raw, emb and h0..h3 (bf16)
+//   fwd_kernel    128-point tiles (hopper_mlp.cuh): x, sin(x.B), four
+//                 wgmma layers, RGBA head; writes x, raw, the ReLU bit
+//                 masks and, with weight gradients, emb and h0..h3 (bf16)
 //   vg_composite  one thread per ray: depth/var/colour, loss, closed-form
 //                 cotangents (sign(0) = 0), the composite VJP by hand, the
 //                 ||d|| term; writes the (P, 4) head cotangent
-//   vg_chain      64-point tiles, grid-stride: dh chain with bf16 operands
-//                 and f32 accumulation, ReLU masks from the stored bf16 h,
-//                 cos(x.B) re-derived in f32, per-point d(loss)/dx, and
-//                 per-block sums of the bias / head / B gradients
-//   vg_wgrad      dW_l = in_l^T @ dh_l over all points: split-K partial
-//                 64x64 tiles (NSPLIT splits), then a deterministic reduce
+//   chain_kernel  128-point tiles (hopper_mlp.cuh): dh chain on wgmma with
+//                 bf16 cotangents, masks from the bits, cos(x.B) in f32,
+//                 per-point d(loss)/dx, per-block bias / head / B sums
+//   wgrad_kernel  dW_l = in_l^T @ dh_l on wgmma over all points: split-K
+//                 128 x 256 partial tiles, then the ordered reduce_rows
 //   vg_dray       one thread per ray: d/d(o, d) = sum dx, sum z * dx
 //
-// All but vg_composite live in vg_shared.cuh, shared with the render
-// megakernel's backward (megakernel.cu).
-//
-// Spilling was chosen over recomputing: it keeps each kernel simple, and
-// its traffic (~0.9 GB each way per mapper iteration, ~0.5 ms at
-// 3.35 TB/s) is small next to this first version's tensor-core time; all
-// cross-block sums are partials plus an ordered reduce, so results are
-// deterministic.
-//
-// Bound on the H100: ~1.3 MFLOP of bf16 products per mapper point (forward,
-// dh chain, weight gradients), so the work is bound by operations at the
-// 989 TFLOP/s bf16 peak; the spill adds the byte term above. This version
-// uses WMMA fragments loaded from L2 (no wgmma/TMA pipeline yet), so it
-// sits well above that bound.
+// Bound on the H100 (mapper call, 379,848 points padded to 380,928):
+// 0.510 ms of bf16 tensor-core work (forward, dh chain, weight gradients
+// at 989 TFLOP/s); the spill's byte floor is ~3.9 GB, ~1.17 ms at
+// 3.35 TB/s (hopper_mlp.cuh). The design: weights streamed through a
+// shared-memory ring by bulk copies, wgmma with activations kept on chip,
+// spills and their reloads as whole 32 KB bulk copies, ReLU masks as bits
+// (the tracker's chain reads 32 bytes per point and layer), and every
+// cross-block sum a partial plus an ordered reduce, so results are
+// bit-reproducible. vg_composite, vg_dray and reduce_rows are the WMMA
+// version's (vg_shared.cuh, shared with K3/K4/K6). Including vg_shared.cuh
+// for them also compiles its WMMA kernels (vg_forward, vg_chain, vg_wgrad,
+// p1_kernel) into this library, where nothing launches them: read ptxas and
+// cuobjdump output for this library by the hop:: names. They leave with
+// the include once K3-K6 move to the Hopper tile and the helpers to a
+// header of their own.
 #include "vg_shared.cuh"
+#include "hopper_mlp.cuh"
 
 namespace {
 
@@ -136,26 +137,103 @@ __global__ void vg_composite(const float* __restrict__ rays,
   gdvec[r * 3 + 2] = ddn * d2 / dn_eps;
 }
 
-cudaError_t run(const Weights& w, const float* rays, const float* aux,
+cudaError_t run(const hop::Weights& w, const float* rays, const float* aux,
                 const float* treg, const float* z2, const float* bound6,
-                const WS& ws, float* outv, float* dray, float* grads, int n,
-                int S2, int SR, int tracker, int with_color, int param_grads,
-                int with_dray, float w_color, float w_reg, float w_beyond,
-                cudaStream_t stream) {
+                const hop::WS& ws, float* outv, float* dray, float* grads,
+                int n, int S2, int SR, int tracker, int with_color,
+                int param_grads, int with_dray, float w_color, float w_reg,
+                float w_beyond, cudaStream_t stream) {
   CK(cudaMemsetAsync(ws.dhead, 0, ws.Ppad * 16, stream));
-  CK(launch_forward(true, w, rays, z2, treg, ws, n, S2, SR, stream));
+  hop::FwdIO io{};
+  io.rays = rays;
+  io.z2 = z2;
+  io.treg = treg;
+  io.bound6 = bound6;
+  io.x4 = ws.x4;
+  io.raw = ws.raw;
+  io.emb = ws.emb;
+  for (int i = 0; i < 4; ++i) io.h[i] = ws.h[i];
+  io.masks = ws.masks;
+  io.P = (long)n * (S2 + SR);
+  io.ntiles = ws.Ppad / hop::TILE;
+  io.S2 = S2;
+  io.SR = SR;
+  CK(param_grads ? hop::launch_fwd<2>(w, io, stream)
+                 : hop::launch_fwd<1>(w, io, stream));
   vg_composite<<<(n + 127) / 128, 128, 0, stream>>>(
       rays, aux, z2, ws.x4, ws.raw, bound6, outv, ws.dhead, ws.gdvec, n, S2,
       SR, tracker, with_color, w_color, w_reg, w_beyond);
   CK(cudaGetLastError());
-  return run_backward(w, ws, n, S2 + SR, param_grads, with_dray, dray, grads,
-                      stream);
+  if (param_grads && with_dray)
+    CK((hop::launch_chain<true, true>(w, ws, stream)));
+  else if (param_grads)
+    CK((hop::launch_chain<true, false>(w, ws, stream)));
+  else if (with_dray)
+    CK((hop::launch_chain<false, true>(w, ws, stream)));
+  if (param_grads) {
+    CK(hop::launch_wgrad(ws, stream));
+    reduce_rows<<<(hop::SMALL + 255) / 256, 256, 0, stream>>>(
+        ws.small, (int)hop::chain_blocks(ws.Ppad / hop::TILE), hop::SMALL,
+        hop::SMALL, grads);
+    CK(cudaGetLastError());
+    for (int l = 0; l < 4; ++l) {
+      const int ncols = (l == 0 ? hop::EMB : hop::HID) * hop::HID;
+      reduce_rows<<<(ncols + 255) / 256, 256, 0, stream>>>(
+          ws.wpart + (long)l * hop::NSPLIT_W * hop::HID * hop::HID,
+          hop::NSPLIT_W, (long)hop::HID * hop::HID, ncols, grads + GRAD_W[l]);
+      CK(cudaGetLastError());
+    }
+  }
+  if (with_dray) {
+    vg_dray<<<(n + 127) / 128, 128, 0, stream>>>(ws.x4, ws.dx, ws.gdvec,
+                                                 dray, n, S2 + SR);
+  } else {
+    CK(cudaMemsetAsync(dray, 0, (size_t)n * 32, stream));
+  }
+  return cudaGetLastError();
+}
+
+// One m64n256k16 x 4 product of the wgmma path on images laid out as the
+// kernels lay them out: tn = 0, K-major (A: 64 x 64 chunk, B: the 256 x 64
+// forward slice); tn = 1, MN-major (the weight gradients' spill blocks:
+// A 64 points x 64 rows, B 64 points x 256 columns). out (64, 256) f32,
+// row-major. A debug entry for the card-only tests.
+__global__ void __launch_bounds__(128) mma_probe(const uint4* a, const uint4* b,
+                                                 float* out, int tn) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = hop::align1024(smem_raw);
+  unsigned char* sb = sm + hop::CHUNK_B;
+  const int t = threadIdx.x;
+  for (int i = t; i < hop::CHUNK_B / 16; i += 128)
+    reinterpret_cast<uint4*>(sm)[i] = a[i];
+  for (int i = t; i < hop::ATILE / 16; i += 128)
+    reinterpret_cast<uint4*>(sb)[i] = b[i];
+  hop::fence_async_smem();
+  __syncthreads();
+  float acc[128];
+  hop::wg_fence();
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (tn)
+      hop::wgmma_n256<1, 1>(acc, hop::desc_sw128(sm + k * 2048, hop::CHUNK_B, 1024),
+                            hop::desc_sw128(sb + k * 2048, hop::CHUNK_B, 1024),
+                            k > 0);
+    else
+      hop::wgmma_n256<0, 0>(acc, hop::desc_sw128(sm + k * 32, 16, 1024),
+                            hop::desc_sw128(sb + k * 32, 16, 1024), k > 0);
+  }
+  hop::wg_commit();
+  hop::wg_wait<0>();
+  const int lane = t & 31, q = lane & 3, r0 = (t >> 5) * 16 + (lane >> 2);
+#pragma unroll
+  for (int i = 0; i < 128; ++i)
+    out[ACC_ROW(r0, i & 3) * 256 + ACC_COL(i >> 2, q, i & 3)] = acc[i];
 }
 
 }  // namespace
 
 extern "C" long long fused_vg_workspace_bytes(int n, int S2, int SR, int pg) {
-  return (long long)carve(nullptr, n, S2, SR, pg).bytes;
+  return (long long)hop::carve(nullptr, n, S2, SR, pg).bytes;
 }
 
 extern "C" int fused_vg(const void* const* wp, const float* rays,
@@ -167,8 +245,19 @@ extern "C" int fused_vg(const void* const* wp, const float* rays,
                         float w_beyond, cudaStream_t stream) {
   if (S2 > MAXS || S2 < 2 || SR == 1 || n <= 0)
     return (int)cudaErrorInvalidValue;
-  const WS ws = carve(static_cast<char*>(wsp), n, S2, SR, param_grads);
-  return (int)run(weights_from(wp), rays, aux, treg, z2, bound6, ws, outv,
-                  dray, grads, n, S2, SR, tracker, with_color, param_grads,
-                  with_dray, w_color, w_reg, w_beyond, stream);
+  const hop::WS ws = hop::carve(static_cast<char*>(wsp), n, S2, SR, param_grads);
+  return (int)run(hop::weights_from(wp), rays, aux, treg, z2, bound6, ws,
+                  outv, dray, grads, n, S2, SR, tracker, with_color,
+                  param_grads, with_dray, w_color, w_reg, w_beyond, stream);
+}
+
+extern "C" int hopper_mma_probe(const void* a, const void* b, float* out,
+                                int tn, cudaStream_t stream) {
+  const int smem = hop::CHUNK_B + hop::ATILE + 1024;
+  cudaError_t e = cudaFuncSetAttribute(
+      mma_probe, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  mma_probe<<<1, 128, smem, stream>>>(static_cast<const uint4*>(a),
+                                      static_cast<const uint4*>(b), out, tn);
+  return (int)cudaGetLastError();
 }

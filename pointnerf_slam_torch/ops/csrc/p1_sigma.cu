@@ -1,29 +1,36 @@
-// p1_sigma: pass-1 density at S1 stratified depths per ray.
+// p1_sigma: pass-1 density at S1 stratified depths per ray (K2).
 //
 // Replaces the JAX reference's Pallas TPU kernel ops/fused_vg.py:284
 // `_make_p1_kernel` (its pallas_call at :533, inside `prepare`).
 //
 // Per point: z = 0.01*gt_d*(1-t) + far*t with t = s/(S1-1); x = o + d*z;
-// emb = sin(x . B) in float32; four bf16 tensor-core layers; sigma column
-// of the head; 100 where x lies outside the AABB (strict inequalities).
-// The kernel itself (`p1_kernel`) lives in mlp_tile.cuh: the megakernel
-// forward (megakernel.cu) runs the same pass first.
+// emb = sin(x . B) in float32; four bf16 wgmma layers; sigma column of the
+// head; 100 where x lies outside the AABB (strict inequalities).
 //
-// Bound on the H100: the work is ~0.42 MFLOP of bf16 products per point
-// against 36 bytes of input and 4 of output per point, so it is bound by
-// operations (tensor-core rate), not bytes. This first version keeps every
-// activation on chip (no spill: the tile's 64 x 256 bf16 layers ping-pong
-// in shared memory) and reads the weights from L2 through WMMA fragment
-// loads; it does not yet use wgmma/TMA, so it runs well below the
-// tensor-core peak.
-#include "mlp_tile.cuh"
+// Bound on the H100: ~0.44 MFLOP of bf16 products per point against 36
+// bytes of input and 4 of output, so operations bound it (4998 x 32
+// points: 0.072 ms at 989 TFLOP/s). The kernel is hopper_mlp.cuh's forward
+// tile without a spill (MODE 0): persistent 128-point tiles, weights
+// streamed through a shared-memory ring by bulk copies, wgmma
+// m64n256k16 with the activations kept on chip, the head on CUDA cores,
+// one float per point written. The render megakernel (K3) keeps its own
+// WMMA pass 1 (mlp_tile.cuh `p1_kernel`).
+#include "hopper_mlp.cuh"
 
-using namespace mlp;
+extern "C" const char* kernel_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
 
 extern "C" int p1_sigma(const void* const* wp, const float* rays,
                         const float* bound6, float* sig1, int n_rays, int S1,
                         cudaStream_t stream) {
   if (n_rays <= 0) return 0;
-  return (int)launch_p1(weights_from(wp), rays, bound6, sig1, n_rays, S1,
-                        stream);
+  hop::FwdIO io{};
+  io.rays = rays;
+  io.bound6 = bound6;
+  io.sig = sig1;
+  io.P = (long)n_rays * S1;
+  io.ntiles = (io.P + hop::TILE - 1) / hop::TILE;
+  io.S1 = S1;
+  return (int)hop::launch_fwd<0>(hop::weights_from(wp), io, stream);
 }

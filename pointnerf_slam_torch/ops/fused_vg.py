@@ -30,6 +30,11 @@ else: CPU tensors take the plain version (`p1_sigma_reference`,
 `fused_vg_reference`), CUDA tensors launch the kernel, anything else
 raises. There is no fallback from a failed build or launch.
 
+Layout: K1 and K2 read the hidden weights as 128-byte-swizzled K-slices
+that their wrappers build from the packed weights on every call
+(`PackedWeights.with_images`, `weight_images`, `swizzle128`), so that the
+kernels' 1-D bulk copies land them ready for wgmma.
+
 Numerics: the hidden and head products take bf16-rounded operands and
 accumulate in float32; x @ B and the camera-gradient contractions stay in
 full float32. `torch.backends.cuda.matmul.allow_tf32` must stay False (the
@@ -130,14 +135,80 @@ class PackedWeights:
     """The kernels' layout: Bp (3, 128) f32 (columns >= 93 zero), W0p
     (128, 256) bf16 (rows >= 93 zero), W1..W3 (256, 256) bf16, Wo (256, 4)
     bf16, biases f32. Zero padding is exact: sin(x * 0) = 0 meets zero
-    rows of W0p."""
+    rows of W0p. K1 and K2 also read the hidden weights as swizzled K-slice
+    streams (`weight_images`), built on first need by `with_images`: wf
+    for the forward (K1, K2), wc for the dh chain (K1 only). K3-K6 read
+    Ws alone; a missing stream passes a null pointer."""
     Bp: torch.Tensor
     Ws: tuple          # W0p, W1, W2, W3, Wo (bf16)
     bs: tuple          # b0, b1, b2, b3, bo (f32)
+    wf: torch.Tensor | None = None   # (14, 256, 64) bf16
+    wc: torch.Tensor | None = None   # (12 * 256 * 64 + 4 * 128 * 64,) bf16
+
+    def with_images(self, chain: bool) -> "PackedWeights":
+        """Builds wf and, with chain, wc where missing; returns self."""
+        wf, wc = weight_images(self.Ws, fwd=self.wf is None,
+                               chain=chain and self.wc is None)
+        self.wf = self.wf if wf is None else wf
+        self.wc = self.wc if wc is None else wc
+        return self
 
     def pointers(self):
-        ts = [self.Bp, *self.Ws, *self.bs]
-        return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+        ts = [self.Bp, *self.Ws, *self.bs, self.wf, self.wc]
+        return (ctypes.c_void_p * len(ts))(
+            *[None if t is None else t.data_ptr() for t in ts])
+
+
+SW_K = 64      # bf16 columns of one 128-byte swizzle row: one K-slice
+
+
+def swizzle128(m: torch.Tensor) -> torch.Tensor:
+    """(R, K) -> (K / 64, R, 64): K-slice s holds m[:, 64 s : 64 s + 64]
+    as the 128-byte-swizzled image that wgmma reads from shared memory
+    (csrc/hopper_mlp.cuh `sw_off`): row r's 16-byte group c (8 bf16) sits
+    at group c ^ (r % 8). The map is its own inverse."""
+    R, K = m.shape
+    if K % SW_K:
+        raise ValueError(f"swizzle128: {K} columns, want a multiple of 64")
+    blk = m.reshape(R, K // SW_K, 8, 8).permute(1, 0, 2, 3)
+    r = torch.arange(R, device=m.device)
+    src = torch.arange(8, device=m.device)[None, :] ^ (r[:, None] % 8)
+    return blk.gather(2, src[None, :, :, None].expand(blk.shape)).reshape(
+        K // SW_K, R, SW_K)
+
+
+def _image_index(Ws) -> tuple:
+    """Positions in cat(W0p, W1, W2, W3 flattened) of wf's and wc's
+    elements (`weight_images`), as int64 index tensors."""
+    pos, o = [], 0
+    for W in Ws[:4]:
+        pos.append(torch.arange(o, o + W.numel()).reshape(W.shape))
+        o += W.numel()
+    wf = torch.cat([swizzle128(P.t()) for P in pos]).reshape(-1)
+    wc = torch.cat([swizzle128(pos[L]).reshape(-1) for L in (3, 2, 1, 0)])
+    return wf, wc
+
+
+_IMAGE_INDEX: dict = {}
+
+
+def weight_images(Ws, fwd: bool = True, chain: bool = True) -> tuple:
+    """The K-slice streams of K1/K2 from W0p, W1..W3 (bf16), each only if
+    asked for (else None): wf (fwd), the forward's B operands (out = in @
+    W_l, K-major: W_l^T), 2 + 3 x 4 slices of 256 x 64; wc (chain), the
+    chain's (dh_{L-1} = dh_L @ W_L^T, K-major: W_L itself) for L = 3, 2, 1
+    as 4 slices of 256 x 64, then W0p as 4 slices of 128 x 64. One gather
+    each through an index built once per device (the swizzle of every
+    element's position)."""
+    if not (fwd or chain):
+        return None, None
+    dev = Ws[0].device
+    if dev not in _IMAGE_INDEX:
+        _IMAGE_INDEX[dev] = tuple(i.to(dev) for i in _image_index(Ws))
+    fi, ci = _IMAGE_INDEX[dev]
+    flat = torch.cat([W.reshape(-1) for W in Ws[:4]])
+    return (flat[fi].reshape(-1, HID, SW_K) if fwd else None,
+            flat[ci] if chain else None)
 
 
 def pack_weights(params: dict) -> PackedWeights:
@@ -215,24 +286,36 @@ def p1_sigma_reference(pw: PackedWeights, rays: torch.Tensor,
     return sig.reshape(-1, S1)
 
 
+def p1_launch(lib, pw: PackedWeights, rays: torch.Tensor,
+              bound: torch.Tensor, S1: int):
+    """K2's C call `p1_sigma` of `lib` (csrc/p1_sigma.cu, or another build
+    of it) on buffers prepared once: returns (launch, sig1 (N, S1)); each
+    launch() runs the kernel into sig1 and raises on a CUDA error."""
+    _check(rays, (rays.shape[0], 8), torch.float32, "rays")
+    n = rays.shape[0]
+    sig1 = torch.empty(n, S1, device=rays.device, dtype=torch.float32)
+    b6 = bound.reshape(-1).float().contiguous()
+    _check(b6, (6,), torch.float32, "bound")
+    lib.p1_sigma.restype = ctypes.c_int
+    args = (pw.with_images(chain=False).pointers(), _ptr(rays), _ptr(b6),
+            _ptr(sig1), ctypes.c_int(n), ctypes.c_int(S1), _stream(rays))
+
+    def launch():
+        build.check(lib, lib.p1_sigma(*args), "p1_sigma")
+        return sig1
+    # the launch keeps every buffer it points at alive
+    launch.keep = (pw, rays, b6)
+    return launch, sig1
+
+
 def p1_sigma(pw: PackedWeights, rays: torch.Tensor, bound: torch.Tensor,
              S1: int) -> torch.Tensor:
     """Pass-1 sigma (N, S1): the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors."""
     if _path(rays, pw.Bp) == "cpu":
         return p1_sigma_reference(pw, rays, bound, S1)
-    _check(rays, (rays.shape[0], 8), torch.float32, "rays")
-    n = rays.shape[0]
-    sig1 = torch.empty(n, S1, device=rays.device, dtype=torch.float32)
-    b6 = bound.reshape(-1).float().contiguous()
-    _check(b6, (6,), torch.float32, "bound")
-    lib = build.load("p1_sigma")
-    lib.p1_sigma.restype = ctypes.c_int
-    rc = lib.p1_sigma(pw.pointers(), ctypes.c_void_p(rays.data_ptr()),
-                      ctypes.c_void_p(b6.data_ptr()),
-                      ctypes.c_void_p(sig1.data_ptr()), ctypes.c_int(n),
-                      ctypes.c_int(S1), _stream(rays))
-    build.check(lib, rc, "p1_sigma")
+    launch, sig1 = p1_launch(build.load("p1_sigma"), pw, rays, bound, S1)
+    launch()
     launches["p1_sigma"] += 1
     return sig1
 
@@ -247,6 +330,10 @@ def _check(t: torch.Tensor, shape, dtype, name: str) -> None:
 
 def _stream(t: torch.Tensor):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _ptr(t: torch.Tensor):
+    return ctypes.c_void_p(t.data_ptr())
 
 
 # ---------------------------------------------------------------------------
@@ -341,11 +428,15 @@ def fused_vg_reference(spec: VGSpec, params: dict, rays_o, rays_d, gt_d,
     return loss.detach(), dparams, dro, drd, aux
 
 
-def _fused_vg_cuda(spec: VGSpec, params: dict, rays_o, rays_d, gt_d, gt_c,
-                   ray_w, t_reg, z2, bound):
+def vg_launch(lib, spec: VGSpec, params: dict, rays_o, rays_d, gt_d, gt_c,
+              ray_w, t_reg, z2, bound):
+    """K1's C call `fused_vg` of `lib` (csrc/fused_vg.cu, or another build
+    of it) on buffers prepared once: returns (launch, (outv (N, 8), dray
+    (N, 8), grads (GRAD_LEN,))); each launch() runs the kernel into them
+    and raises on a CUDA error."""
     n, S2 = z2.shape
     dev = rays_o.device
-    pw = pack_weights(params)
+    pw = pack_weights(params).with_images(chain=True)
     rays = _pack_rays(rays_o, rays_d, gt_d, bound)
     aux = torch.cat([gt_c, ray_w[:, None]], dim=1).float().contiguous()
     z2c = z2.float().contiguous()
@@ -358,7 +449,6 @@ def _fused_vg_cuda(spec: VGSpec, params: dict, rays_o, rays_d, gt_d, gt_c,
         _check(t, shape, torch.float32, name)
     if spec.with_reg:
         _check(treg, (n, SR), torch.float32, "t_reg")
-    lib = build.load("fused_vg")
     lib.fused_vg_workspace_bytes.restype = ctypes.c_longlong
     lib.fused_vg.restype = ctypes.c_int
     ws_bytes = lib.fused_vg_workspace_bytes(
@@ -368,19 +458,31 @@ def _fused_vg_cuda(spec: VGSpec, params: dict, rays_o, rays_d, gt_d, gt_c,
     outv = torch.empty(n, 8, device=dev)
     dray = torch.empty(n, 8, device=dev)
     grads = torch.empty(GRAD_LEN, device=dev)
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
-    rc = lib.fused_vg(
-        pw.pointers(), ptr(rays), ptr(aux), ptr(treg), ptr(z2c), ptr(b6),
-        ptr(ws), ptr(outv), ptr(dray), ptr(grads),
-        ctypes.c_int(n), ctypes.c_int(S2), ctypes.c_int(SR),
-        ctypes.c_int(int(spec.mode == "tracker")),
-        ctypes.c_int(int(spec.with_color)),
-        ctypes.c_int(int(spec.param_grads)),
-        ctypes.c_int(int(spec.with_ray_grads)),
-        ctypes.c_float(spec.w_color), ctypes.c_float(spec.w_reg),
-        ctypes.c_float(spec.w_beyond if spec.with_beyond else 0.0),
-        _stream(rays))
-    build.check(lib, rc, "fused_vg")
+    args = (pw.pointers(), _ptr(rays), _ptr(aux), _ptr(treg), _ptr(z2c),
+            _ptr(b6), _ptr(ws), _ptr(outv), _ptr(dray), _ptr(grads),
+            ctypes.c_int(n), ctypes.c_int(S2), ctypes.c_int(SR),
+            ctypes.c_int(int(spec.mode == "tracker")),
+            ctypes.c_int(int(spec.with_color)),
+            ctypes.c_int(int(spec.param_grads)),
+            ctypes.c_int(int(spec.with_ray_grads)),
+            ctypes.c_float(spec.w_color), ctypes.c_float(spec.w_reg),
+            ctypes.c_float(spec.w_beyond if spec.with_beyond else 0.0),
+            _stream(rays))
+
+    def launch():
+        build.check(lib, lib.fused_vg(*args), "fused_vg")
+        return outv, dray, grads
+    # the launch keeps every buffer it points at alive
+    launch.keep = (pw, rays, aux, z2c, treg, b6, ws)
+    return launch, (outv, dray, grads)
+
+
+def _fused_vg_cuda(spec: VGSpec, params: dict, rays_o, rays_d, gt_d, gt_c,
+                   ray_w, t_reg, z2, bound):
+    launch, (outv, dray, grads) = vg_launch(
+        build.load("fused_vg"), spec, params, rays_o, rays_d, gt_d, gt_c,
+        ray_w, t_reg, z2, bound)
+    launch()
     launches[f"fused_vg_{spec.mode}"] += 1
     emb = params["embedder.B"].shape[1]
     dparams = _unpack_grads(grads, emb) if spec.param_grads else None

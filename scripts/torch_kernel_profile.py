@@ -9,6 +9,14 @@ gradients only; p1: 4998 rays x 32 points) it runs each variant under
 torch.profiler and prints the CUDA time per kernel name (ms per call,
 averaged over --reps calls) and the device-busy share of the window.
 Needs one NVIDIA card; prints the card's name and power limit first.
+
+The sub-kernels (csrc/hopper_mlp.cuh, csrc/fused_vg.cu): `prepare` runs
+`hop::fwd_kernel<0>` (K2, pass-1 sigma) and the torch middle; `main` runs
+`hop::fwd_kernel<2>` (forward with the bf16 spill; `<1>` without, when
+no weight gradients are asked for), `vg_composite`, `hop::chain_kernel<PG,
+DRAY>` (dh chain; PG: weight-gradient sums and dh spill, DRAY: per-point
+dx), `hop::wgrad_kernel` (weight-gradient GEMM), `reduce_rows` and
+`vg_dray`.
 """
 
 from __future__ import annotations

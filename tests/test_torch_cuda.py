@@ -7,14 +7,17 @@ Each check runs on two decoders: a random one, and the same one after a
 short mapping run on the kernels, where the tracker's depth weights
 1/sqrt(var) are no longer set by rays with var ~ 0. The comparisons and
 tolerances are chip_smoke.py's (`check_p1`, `check_vg`): loss rtol 1e-3;
-parameter gradients atol 2e-2 * max|g|; ray gradients cosine > 0.999 and
+parameter gradients atol 2e-2 * max|g| (off the rays at a loss kink, as
+the ray gradients); ray gradients cosine > 0.999 and
 norm ratio in [0.98, 1.02] on the rays off the loss kinks (for the
 tracker also on those with var >= 1e-4); depth and colour within 1e-3 on
 >= 95% of rays and within 2e-2 on every ray off the last-interval step;
 sigma within 2e-2 * max|sigma| and within 1e-3 * (1 + |sigma|) on
 >= 95%. K5/K6 (`check_mlp`): the decoder's output within 1e-3 (1 + |raw|)
 on >= 98% of values and 2e-2 max|raw| on all; dx and every parameter
-gradient by cosine >= 0.9999 and norm ratio within 1e-3."""
+gradient by cosine >= 0.9999 and norm ratio within 1e-3. K1 and K2 also
+at ragged sizes, two K1 launches bit for bit, and one wgmma product on the
+kernels' shared-memory images (`hopper_mma_probe`)."""
 
 import numpy as np
 import pytest
@@ -225,3 +228,109 @@ def test_cuda_fused_decoder_autograd(cuda):
     assert torch.equal(x.grad, dx)
     for k, p in F.params_of(dec).items():
         assert torch.equal(p.grad, dps[k]), k
+
+
+# K1 at ragged shapes: merged samples per ray S2 = S1 + SI from the real
+# pass 1 and importance resample; SR = 32 regulation samples with the
+# mapper's loss, SR = 0 with the tracker's
+_S2_SPLIT = {20: (12, 8), 32: (24, 8), 44: (32, 12), 64: (40, 24)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 333, 1500, 4998])
+@pytest.mark.parametrize("S2", sorted(_S2_SPLIT))
+@pytest.mark.parametrize("SR", [0, 32])
+@pytest.mark.parametrize("pg,rg", [(True, True), (True, False),
+                                   (False, True), (False, False)])
+def test_cuda_fused_vg_ragged(cuda, n, S2, SR, pg, rg):
+    """The Hopper K1 (128-point tiles over a point count padded to 1024)
+    against its plain version with chip_smoke's check_vg, at every
+    combination of parameter and ray gradients."""
+    import dataclasses
+    dec, rays, b = setup(cuda, n=n)
+    if n < 8:           # keep a depth-supervised ray at the smallest sizes
+        rays[2] = torch.where(rays[2] > 0, rays[2], torch.full_like(
+            rays[2], 1.7))
+    noise = sigma_noise(dec, rays, b)
+    S1, SI = _S2_SPLIT[S2]
+    mode, kw = (("mapper", dict(MAPPER, w_beyond=1.0)) if SR
+                else ("tracker", dict(TRACKER)))
+    prep, main = F.make_fused_vg_split(
+        RenderConfig(N_samples=S1, N_importance=SI), mode, **kw,
+        param_grads=pg, with_ray_grads=rg)
+    spec = dataclasses.replace(main.spec, SR=SR)
+    z2 = prep(dec, *rays[:3], b)
+    assert z2.shape == (n, S2)
+    args = (*rays, z2, b)
+    params = F.params_of(dec)
+    out_k = F._fused_vg_cuda(spec, params, *args)
+    out_p = F.fused_vg_reference(spec, params, *args)
+    S.check_vg(f"{mode} n={n} S2={S2} SR={SR} pg={pg} rg={rg}", out_k,
+               out_p, spec, args, params, noise)
+    assert (out_k[1] is None) == (not pg)
+    if not rg:
+        assert float(out_k[2].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 333, 4998])
+@pytest.mark.parametrize("S1", [8, 24, 32])
+def test_cuda_p1_sigma_ragged(cuda, n, S1):
+    """The Hopper K2 (128-point tiles, ragged last tile) against its plain
+    version with chip_smoke's check_p1."""
+    dec, rays, b = setup(cuda, n=n)
+    pw = F.pack_weights(F.params_of(dec))
+    before = F.launches["p1_sigma"]
+    S.check_p1(torch, F, pw, F._pack_rays(*rays[:3], b), b, f"n={n}", S1)
+    assert F.launches["p1_sigma"] == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_fused_vg_bit_reproducible(cuda):
+    """Two launches of the mapper K1 with weight and ray gradients give
+    the same loss, gradients and ray gradients bit for bit (split-K
+    partials and ordered reduces, no atomics)."""
+    dec, rays, b = setup(cuda, n=4998)
+    prep, main = F.make_fused_vg_split(RenderConfig(), "mapper", **MAPPER,
+                                       w_beyond=1.0)
+    z2 = prep(dec, *rays[:3], b)
+    a = main(dec, *rays, z2, b)
+    c = main(dec, *rays, z2, b)
+    assert torch.equal(a[0], c[0])
+    for k in F.PARAM_NAMES:
+        assert torch.equal(a[1][k], c[1][k]), k
+    assert torch.equal(a[2], c[2]) and torch.equal(a[3], c[3])
+    for x, y in zip(a[4], c[4]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tn", [0, 1])
+def test_cuda_wgmma_tile_layout(cuda, tn):
+    """One wgmma m64n256k16 x 4 product on the kernels' shared-memory
+    images (`hopper_mma_probe`): K-major (tn = 0: a 64 x 64 activation
+    chunk times a forward weight slice) and MN-major (tn = 1: the weight
+    gradients' spill blocks, in^T @ dh) against a float64 product."""
+    import ctypes
+    from pointnerf_slam_torch.ops import build
+    g = torch.Generator().manual_seed(tn)
+    a = torch.randn(64, 64, generator=g).to(torch.bfloat16)
+    bm = torch.randn(64, 256, generator=g).to(torch.bfloat16)
+    if tn == 0:
+        imgs = (F.swizzle128(a), F.swizzle128(bm.t().contiguous()))
+        ref = a.double() @ bm.double()
+    else:
+        imgs = (F.swizzle128(a), F.swizzle128(bm))
+        ref = a.double().t() @ bm.double()
+    ai, bi = (t.contiguous().to(cuda) for t in imgs)
+    out = torch.empty(64, 256, device=cuda)
+    lib = build.load("fused_vg")
+    lib.hopper_mma_probe.restype = ctypes.c_int
+    rc = lib.hopper_mma_probe(ctypes.c_void_p(ai.data_ptr()),
+                              ctypes.c_void_p(bi.data_ptr()),
+                              ctypes.c_void_p(out.data_ptr()),
+                              ctypes.c_int(tn), F._stream(out))
+    build.check(lib, rc, "hopper_mma_probe")
+    torch.cuda.synchronize()
+    err = float((out.double().cpu() - ref).abs().max())
+    assert err <= 1e-5 * float(ref.abs().max()), err

@@ -247,3 +247,37 @@ def test_wrappers_route_by_device_only():
                                F.p1_sigma_reference(pw, pk, T(BOUND), 32))
     with pytest.raises(ValueError):
         F.p1_sigma(pw, pk.to("meta"), T(BOUND), 32)
+
+
+@pytest.mark.parametrize("mode,kw", [
+    ("mapper", dict(MAPPER, w_beyond=1.0, with_ray_grads=False)),
+    ("tracker", dict(TRACKER, param_grads=False))])
+def test_vg_check_bounds_the_kink_rays(mode, kw):
+    """chip_smoke.check_vg judges gradients off the rays whose L1 depth
+    residual has opposite signs in the two versions (kinks), and fails
+    when they are more than OUT_SHARE of the rays: a kernel depth 2e-5 off
+    the plain one across gt on one ray passes, on 6 of 60 rays fails."""
+    _, dec, rays = setup(n=60)
+    ro, rd, gt_d, gt_c, ray_w, t_reg = map(T, rays)
+    b = T(BOUND)
+    prep, main = F.make_fused_vg_split(RCFG, mode, **kw)
+    z2 = prep(dec, ro, rd, gt_d, b)
+    params = F.params_of(dec)
+    depth = F.fused_vg_reference(main.spec, params, ro, rd, gt_d, gt_c,
+                                 ray_w, t_reg, z2, b)[4][0]
+    for m in (1, 6):
+        flip = slice(1, m + 1)               # rays 1..6 all have gt_d > 0
+        g2 = gt_d.clone()
+        g2[flip] = depth[flip] + 1e-5
+        args = (ro, rd, g2, gt_c, ray_w, t_reg, z2, b)
+        out_p = F.fused_vg_reference(main.spec, params, *args)
+        dk = out_p[4][0].clone()
+        dk[flip] += 2e-5
+        out_k = out_p[:4] + ((dk,) + tuple(out_p[4][1:]),)
+        if m / 60 <= S.OUT_SHARE:
+            S.check_vg(f"{mode} m={m}", out_k, out_p, main.spec, args,
+                       params, 1e-3)
+        else:
+            with pytest.raises(SystemExit, match="at a kink"):
+                S.check_vg(f"{mode} m={m}", out_k, out_p, main.spec, args,
+                           params, 1e-3)
