@@ -9,7 +9,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      nvcc for sm_90a, one process per source, all started together;
      prints the seconds, ptxas' register and spill lines and each
      library's count of HGMMA (wgmma) instructions (cuobjdump -sass);
-     fails if fused_vg or p1_sigma has none
+     fails if fused_vg, p1_sigma or megakernel has none, if ptxas reports
+     a spilled byte in any kernel of the four libraries, or if fused_vg or
+     megakernel holds one of the WMMA kernels (vg_forward, vg_chain,
+     vg_wgrad, p1_kernel) that K1-K4 left for the Hopper tile
   3. kernels, random cell: at the main paths' shapes (5000 rays, 32+12
      samples, 32 regulation samples, 256-wide MLP) and a random decoder,
      each kernel is held against its plain PyTorch version on the same
@@ -36,6 +39,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      tracking lowers the summed loss, camera errors stay small; the last
      frame writes final_mesh.ply and final_mesh_eval_rec.ply at
      resolution 256 (float32 decoder) under output/chip_smoke/room_bench
+  5b. engine, handle_dynamic tracker: the bench workload's tracker at full
+     width (5000 rays, 32+12 samples, 50 iterations) with
+     tracking.handle_dynamic on: K3/K4 launched exactly 50 times each (one
+     pixel batch per iteration); ms per iteration; the loss falls
   6. mesh: both PLYs read back; the same mesh from a snapshot with the
      fused decoder (K5) is held against final_mesh.ply (counts within 1%,
      mean nearest-vertex distance under half a voxel); seconds by stage
@@ -55,7 +62,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      40 frames (weak depth, handle_dynamic, BA): the tracker runs K3/K4,
      the mapper K1 with ray gradients (BA); tracking lowers the summed loss
  11. the launch counts of phases 4-10, each path counted from 0 (every
-     kernel must have launched on the main paths)
+     kernel must have launched on the main paths; K3/K4 on the
+     handle_dynamic tracker, mapper two-kernel and dynamic paths)
  12. tracking check: the tracker pulls frame 0 back from a 2 cm shift on
      the map that phase 5 built
  13. kernels, map cell: the kernels against their plain versions again,
@@ -65,8 +73,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      mapped, at its tracker's shape (1500 rays, 24+8 samples, no
      regulation, pseudo-depth pixels of its last tracked frame)
  15. one `{"kernels": [...]}` line (launches per path beside the total;
-     K1 and K2 also with bound_share = bound_ms / ms), then the device
-     line last.
+     every row with bound_share = bound_ms / ms), then the device line
+     last.
 Nothing here imports JAX or the JAX package.
 """
 
@@ -154,17 +162,31 @@ def bound_ms(flops: float, nbytes: float):
                                        else "bytes")
 
 
-def hgmma_counts(build, names) -> dict:
-    """{library: count of HGMMA (wgmma) instructions in its SASS}."""
+# WMMA kernels of mlp_tile.cuh / vg_shared.cuh that only K5/K6 may keep
+WMMA_KERNELS = ("vg_forward", "vg_chain", "vg_wgrad", "p1_kernel")
+
+
+def sass_summary(build, names) -> dict:
+    """{library: (count of HGMMA (wgmma) instructions in its SASS, names of
+    its kernels)} from cuobjdump -sass."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = {}
     for name in names:
         sass = subprocess.run([tool, "-sass", build._lib_path(name)],
                               capture_output=True, text=True,
-                              timeout=300).stdout
-        out[name] = sum("HGMMA" in ln for ln in sass.splitlines())
+                              timeout=300).stdout.splitlines()
+        out[name] = (sum("HGMMA" in ln for ln in sass),
+                     [ln.split("Function :", 1)[1].strip() for ln in sass
+                      if "Function :" in ln])
     return out
+
+
+def spilled(log: str) -> list:
+    """ptxas -v lines of a build log that report a spilled byte."""
+    import re
+    return [ln.strip() for ln in log.splitlines()
+            if any(int(v) for v in re.findall(r"(\d+) bytes spill", ln))]
 
 
 def rays_batch(torch, gen, n, cams, depth_hi=3.0):
@@ -729,18 +751,19 @@ def check_render(torch, cell, dec, ro, rd, gt_d, t_reg, bound, with_reg,
     b4, by4 = bound_ms(n * (S2 + SR) * FLOP_FWD * 2,
                        n * (8 + S2 + 8 + SR) * 4 + nw + n * 8 * 4)
     print(f"kernels: {tag}: K3 {ms3:.3f} ms (plain {pms3:.3f} ms, bound "
-          f"{b3:.4f} ms by {by3}); K4 {ms4:.3f} ms (plain backward "
-          f"{pms4:.3f} ms, bound {b4:.4f} ms by {by4})", flush=True)
+          f"{b3:.4f} ms by {by3}, {100 * b3 / ms3:.1f}% of it); K4 "
+          f"{ms4:.3f} ms (plain backward {pms4:.3f} ms, bound {b4:.4f} ms "
+          f"by {by4}, {100 * b4 / ms4:.1f}% of it)", flush=True)
     src = "pointnerf_slam_torch/ops/csrc/megakernel.cu"
     return {"megakernel_fwd": dict(
         route="cuda", source=src,
         replaces="pointnerf_slam_tpu/ops/megakernel.py:393",
         max_abs_err=err, ms=ms3, plain_ms=pms3, bound_ms=b3, bound_by=by3,
-        library_ms=None), "megakernel_bwd": dict(
+        library_ms=None, bound_share=b3 / ms3), "megakernel_bwd": dict(
         route="cuda", source=src,
         replaces="pointnerf_slam_tpu/ops/megakernel.py:480",
         max_abs_err=gerr, ms=ms4, plain_ms=pms4, bound_ms=b4, bound_by=by4,
-        library_ms=None)}, err, gerr
+        library_ms=None, bound_share=b4 / ms4)}, err, gerr
 
 
 def phase_kernels_mk(torch, report, dec, cell, rays_of, bound, sig_noise):
@@ -926,11 +949,11 @@ def phase_kernels_mlp(torch, report, dec, cell, rays_of, bound,
     rows[0].update(route="cuda", source=src,
                    replaces="pointnerf_slam_tpu/ops/fused_mlp.py:104",
                    ms=ms5, plain_ms=pms5, bound_ms=b5, bound_by=by5,
-                   library_ms=None)
+                   library_ms=None, bound_share=b5 / ms5)
     rows[1].update(route="cuda", source=src,
                    replaces="pointnerf_slam_tpu/ops/fused_mlp.py:116",
                    ms=ms6, plain_ms=pms6, bound_ms=b6, bound_by=by6,
-                   library_ms=None)
+                   library_ms=None, bound_share=b6 / ms6)
 
 
 
@@ -965,10 +988,12 @@ def bench_ecfg(**over):
 
 
 def bench_engine(torch, dec, tracker_iters=50, map_inner=100, mcfg=None,
-                 megakernel="auto"):
-    """The bench workload through the port's tracker and mapper. Returns
+                 megakernel="auto", **over):
+    """The bench workload through the port's tracker and mapper (with
+    bench_ecfg's options `over`; map_inner 0: the tracker alone). Returns
     (ms per tracker iteration, ms per mapper iteration, tracker losses,
-    mapper losses, {"tracker": launches, "mapper": launches})."""
+    mapper losses, {"tracker": launches, "mapper": launches}; None for
+    the mapper's numbers without it)."""
     from pointnerf_slam_torch.engine.mapper import make_mapper_step
     from pointnerf_slam_torch.engine.state import Draws
     from pointnerf_slam_torch.engine.tracker import make_tracking_step
@@ -976,12 +1001,14 @@ def bench_engine(torch, dec, tracker_iters=50, map_inner=100, mcfg=None,
     from pointnerf_slam_torch.ops import fused_vg as F
     from pointnerf_slam_torch.render.renderer import RenderConfig
     dev = torch.device("cuda")
-    ecfg = bench_ecfg(num_cam_iters=tracker_iters, megakernel=megakernel)
+    ecfg = bench_ecfg(num_cam_iters=tracker_iters, megakernel=megakernel,
+                      **over)
     mcfg, rcfg = mcfg or MLPConfig(), RenderConfig()
     d = bench_data(torch)
     draws = Draws(torch.Generator(device=dev).manual_seed(2))
     track = make_tracking_step(mcfg, rcfg, ecfg)
-    mapper = make_mapper_step(mcfg, rcfg, ecfg, 6, outer_fused=True)
+    mapper = (make_mapper_step(mcfg, rcfg, ecfg, 6, outer_fused=True)
+              if map_inner else None)
     cam0 = torch.tensor([1.0, 0, 0, 0, 0.02, 0, 2.5], device=dev)
     torch.cuda.synchronize()
     l0 = dict(F.launches)
@@ -991,14 +1018,16 @@ def bench_engine(torch, dec, tracker_iters=50, map_inner=100, mcfg=None,
     torch.cuda.synchronize()
     t1 = time.time()
     l1 = dict(F.launches)
-    _, ml = mapper(dec, d["colors"], d["depths"], d["cams"], d["valid"],
-                   d["ba"], d["bound"], draws, map_inner)
-    torch.cuda.synchronize()
-    t2 = time.time()
+    m_ms = ml = None
+    if map_inner:
+        _, ml = mapper(dec, d["colors"], d["depths"], d["cams"], d["valid"],
+                       d["ba"], d["bound"], draws, map_inner)
+        torch.cuda.synchronize()
+        m_ms = (time.time() - t1) * 1e3 / (3 * map_inner)
     l2 = dict(F.launches)
     delta = lambda a, b: {k: b[k] - a[k] for k in a if b[k] != a[k]}
-    return ((t1 - t0) * 1e3 / tracker_iters, (t2 - t1) * 1e3 / (3 * map_inner),
-            tl, ml, {"tracker": delta(l0, l1), "mapper": delta(l1, l2)})
+    return ((t1 - t0) * 1e3 / tracker_iters, m_ms, tl, ml,
+            {"tracker": delta(l0, l1), "mapper": delta(l1, l2)})
 
 
 def falls(ls, k: int) -> bool:
@@ -1022,6 +1051,33 @@ def phase_engine(torch):
     print(f"engine: tracker {t_ms:.2f} ms/iter (loss {float(tl[0]):.1f} -> "
           f"{float(tl[-1]):.1f}), mapper {m_ms:.2f} ms/iter (loss "
           f"{float(ml[0]):.1f} -> {float(ml[-1]):.1f})", flush=True)
+
+
+def phase_engine_dynamic(torch):
+    """The bench workload's tracker at full width (680x1200 frame, 5000
+    rays, 32 + 12 samples, 50 iterations from a 2 cm shift) with
+    tracking.handle_dynamic on: the dynamic-pixel median needs the whole
+    batch's depth, so the tracker takes the two-kernel path with one pixel
+    batch per iteration (engine/tracker.py `per_iter`), one K3 and one K4
+    each: exactly 50 of each, and no other kernel. ms per iteration; the
+    loss is finite and falls."""
+    from pointnerf_slam_torch.models.decoders import IMAPDecoder, MLPConfig
+    dec = IMAPDecoder(MLPConfig(), torch.Generator().manual_seed(0)).to(
+        "cuda")
+    bench_engine(torch, dec, 5, 0, handle_dynamic=True)      # warm-up
+    t_ms, _, tl, _, got = bench_engine(torch, dec, map_inner=0,
+                                       handle_dynamic=True)
+    want = {"tracker": {"megakernel_fwd": 50, "megakernel_bwd": 50},
+            "mapper": {}}
+    print(f"engine dynamic: handle_dynamic tracker {t_ms:.2f} ms/iter (loss "
+          f"{float(tl[0]):.6g} -> {float(tl[-1]):.6g}, first 5 mean "
+          f"{float(tl[:5].mean()):.6g}, last 5 {float(tl[-5:].mean()):.6g});"
+          f" launches {got}", flush=True)
+    if got != want:
+        fail(f"engine dynamic: launches {got}, want {want}")
+    if not falls(tl, 5):
+        fail(f"engine dynamic: loss not finite or did not fall: "
+             f"{tl[:5].tolist()} -> {tl[-5:].tolist()}")
 
 
 def phase_engine_plain(torch):
@@ -1491,12 +1547,21 @@ def main() -> int:
         for ln in log.splitlines():
             if "registers" in ln or "spill" in ln:
                 print(f"build: {name}: {ln.strip()}")
-    hgmma = hgmma_counts(build, logs)
+    sass = sass_summary(build, logs)
     print(f"build: HGMMA instructions per library (cuobjdump -sass): "
-          f"{hgmma}", flush=True)
-    for name in ("fused_vg", "p1_sigma"):
-        if not hgmma.get(name):
+          f"{ {k: v[0] for k, v in sass.items()} }", flush=True)
+    for name in ("fused_vg", "p1_sigma", "megakernel"):
+        if not sass[name][0]:
             fail(f"build: {name} has no HGMMA (wgmma) instruction")
+    for name in ("fused_vg", "megakernel"):
+        wmma = [f for f in sass[name][1] if any(k in f for k in WMMA_KERNELS)]
+        print(f"build: {name}: {len(sass[name][1])} kernels, WMMA kernels "
+              f"among them: {wmma}", flush=True)
+        if wmma:
+            fail(f"build: {name} holds WMMA kernels {wmma}")
+    spills = {k: spilled(v) for k, v in logs.items() if spilled(v)}
+    if spills:
+        fail(f"build: ptxas reports spilled bytes: {spills}")
     report = {}
     phase_kernels(torch, report)
     # each path from counts of 0, read right after it; the kernels each
@@ -1507,6 +1572,7 @@ def main() -> int:
     mk = ("megakernel_fwd", "megakernel_bwd")
     paths = (("sensor", lambda: (phase_engine(torch), phase_system(torch))[1],
               k1),
+             ("dynamic tracker", lambda: phase_engine_dynamic(torch), mk),
              ("mesh", lambda: phase_mesh(torch, slam), ("fused_mlp_fwd",)),
              ("plain", lambda: phase_engine_plain(torch),
               ("fused_mlp_fwd", "fused_mlp_bwd")),

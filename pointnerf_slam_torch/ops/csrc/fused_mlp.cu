@@ -16,7 +16,7 @@
 //                     rows up to a multiple of 1024 points: a zero
 //                     cotangent adds nothing) and the bf16 emb, h0..h3 into
 //                     the kernel's own workspace for the chain
-//   vg_chain          K1/K4's dh chain (vg_shared.cuh): bf16-rounded
+//   vg_chain          the WMMA dh chain (vg_shared.cuh): bf16-rounded
 //                     cotangents at every product, as the TPU kernel's
 //                     _dot_tn / _dot_nt; dx = demb . B^T and dB = x^T demb
 //                     in float32; small sums (dB, biases, head) per block
@@ -27,10 +27,10 @@
 //
 // Bound on the H100: ~0.44 MFLOP of bf16 products per point forward and
 // ~1.33 MFLOP per point for recompute + backward, over 989 TFLOP/s; the
-// bytes (28 per point forward, 40 backward) are far below that line. Like
-// K2 this first version loads WMMA fragments of the weights from L2 (no
-// wgmma/TMA pipeline, no weight residency), so it sits well above the
-// bound.
+// bytes (28 per point forward, 40 backward) are far below that line. This
+// first version loads WMMA fragments of the weights from L2 (no
+// wgmma/TMA pipeline, no weight residency; K1-K4 have moved to
+// hopper_mlp.cuh), so it sits well above the bound.
 #include "vg_shared.cuh"
 
 namespace {

@@ -32,15 +32,10 @@
 // spills and their reloads as whole 32 KB bulk copies, ReLU masks as bits
 // (the tracker's chain reads 32 bytes per point and layer), and every
 // cross-block sum a partial plus an ordered reduce, so results are
-// bit-reproducible. vg_composite, vg_dray and reduce_rows are the WMMA
-// version's (vg_shared.cuh, shared with K3/K4/K6). Including vg_shared.cuh
-// for them also compiles its WMMA kernels (vg_forward, vg_chain, vg_wgrad,
-// p1_kernel) into this library, where nothing launches them: read ptxas and
-// cuobjdump output for this library by the hop:: names. They leave with
-// the include once K3-K6 move to the Hopper tile and the helpers to a
-// header of their own.
-#include "vg_shared.cuh"
-#include "hopper_mlp.cuh"
+// bit-reproducible. The launch sequence is hopper_vg.cuh's, shared with
+// K4 (megakernel.cu); vg_composite, vg_dray and reduce_rows build on
+// ray_shared.cuh.
+#include "hopper_vg.cuh"
 
 namespace {
 
@@ -143,54 +138,16 @@ cudaError_t run(const hop::Weights& w, const float* rays, const float* aux,
                 int n, int S2, int SR, int tracker, int with_color,
                 int param_grads, int with_dray, float w_color, float w_reg,
                 float w_beyond, cudaStream_t stream) {
-  CK(cudaMemsetAsync(ws.dhead, 0, ws.Ppad * 16, stream));
-  hop::FwdIO io{};
-  io.rays = rays;
-  io.z2 = z2;
-  io.treg = treg;
-  io.bound6 = bound6;
-  io.x4 = ws.x4;
-  io.raw = ws.raw;
-  io.emb = ws.emb;
-  for (int i = 0; i < 4; ++i) io.h[i] = ws.h[i];
-  io.masks = ws.masks;
-  io.P = (long)n * (S2 + SR);
-  io.ntiles = ws.Ppad / hop::TILE;
-  io.S2 = S2;
-  io.SR = SR;
-  CK(param_grads ? hop::launch_fwd<2>(w, io, stream)
-                 : hop::launch_fwd<1>(w, io, stream));
-  vg_composite<<<(n + 127) / 128, 128, 0, stream>>>(
-      rays, aux, z2, ws.x4, ws.raw, bound6, outv, ws.dhead, ws.gdvec, n, S2,
-      SR, tracker, with_color, w_color, w_reg, w_beyond);
-  CK(cudaGetLastError());
-  if (param_grads && with_dray)
-    CK((hop::launch_chain<true, true>(w, ws, stream)));
-  else if (param_grads)
-    CK((hop::launch_chain<true, false>(w, ws, stream)));
-  else if (with_dray)
-    CK((hop::launch_chain<false, true>(w, ws, stream)));
-  if (param_grads) {
-    CK(hop::launch_wgrad(ws, stream));
-    reduce_rows<<<(hop::SMALL + 255) / 256, 256, 0, stream>>>(
-        ws.small, (int)hop::chain_blocks(ws.Ppad / hop::TILE), hop::SMALL,
-        hop::SMALL, grads);
-    CK(cudaGetLastError());
-    for (int l = 0; l < 4; ++l) {
-      const int ncols = (l == 0 ? hop::EMB : hop::HID) * hop::HID;
-      reduce_rows<<<(ncols + 255) / 256, 256, 0, stream>>>(
-          ws.wpart + (long)l * hop::NSPLIT_W * hop::HID * hop::HID,
-          hop::NSPLIT_W, (long)hop::HID * hop::HID, ncols, grads + GRAD_W[l]);
-      CK(cudaGetLastError());
-    }
-  }
-  if (with_dray) {
-    vg_dray<<<(n + 127) / 128, 128, 0, stream>>>(ws.x4, ws.dx, ws.gdvec,
-                                                 dray, n, S2 + SR);
-  } else {
-    CK(cudaMemsetAsync(dray, 0, (size_t)n * 32, stream));
-  }
-  return cudaGetLastError();
+  return vg_sequence(
+      w, ws, hop::pass2_io(ws, rays, z2, treg, bound6, n, S2, SR), n,
+      param_grads, with_dray, dray, grads,
+      [&] {
+        vg_composite<<<(n + 127) / 128, 128, 0, stream>>>(
+            rays, aux, z2, ws.x4, ws.raw, bound6, outv, ws.dhead, ws.gdvec,
+            n, S2, SR, tracker, with_color, w_color, w_reg, w_beyond);
+        return cudaGetLastError();
+      },
+      stream);
 }
 
 // One m64n256k16 x 4 product of the wgmma path on images laid out as the

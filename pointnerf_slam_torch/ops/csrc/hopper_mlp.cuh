@@ -1,10 +1,11 @@
 // Hopper tile of the iMAP* decoder: the forward and backward building
-// blocks of K1 (fused_vg.cu) and K2 (p1_sigma.cu), redesigned for sm_90a.
+// blocks of K1 (fused_vg.cu), K2 (p1_sigma.cu) and the render megakernel
+// pair K3/K4 (megakernel.cu), for sm_90a.
 //
-// Replaces, on those two kernels, the WMMA tile of mlp_tile.cuh /
-// vg_shared.cuh (which K3-K6 keep). The TPU kernels are the JAX
-// reference's ops/fused_vg.py:304 `_make_vg_kernel` (K1) and :284
-// `_make_p1_kernel` (K2).
+// Replaces, on those kernels, the WMMA tile of mlp_tile.cuh /
+// vg_shared.cuh (which K5/K6 keep). The TPU kernels are the JAX
+// reference's ops/fused_vg.py:304 `_make_vg_kernel` (K1), :284
+// `_make_p1_kernel` (K2) and ops/megakernel.py:393 / :480 (K3 / K4).
 //
 // What bounds the work on the H100 (989 TFLOP/s bf16, 3.35 TB/s): the
 // decoder is 2 x (93*256 + 3*256*256 + 256*4) = 442,880 FLOP per point and
@@ -631,6 +632,20 @@ __global__ void __launch_bounds__(NTHR, 1) fwd_kernel(Weights w, FwdIO io) {
   }
 }
 
+// MODE 0's points: S1 stratified depths of each of the n rays (K2, and
+// K3's pass 1: the same tiles, so the same sigma bit for bit)
+inline FwdIO pass1_io(const float* rays, const float* bound6, float* sig1,
+                      int n, int S1) {
+  FwdIO io{};
+  io.rays = rays;
+  io.bound6 = bound6;
+  io.sig = sig1;
+  io.P = (long)n * S1;
+  io.ntiles = (io.P + TILE - 1) / TILE;
+  io.S1 = S1;
+  return io;
+}
+
 inline int num_sms() {
   static int n = 0;
   if (!n) {
@@ -1064,7 +1079,7 @@ __global__ void __launch_bounds__(NTHR, 1) wgrad_kernel(WgradIO io) {
   }
 }
 
-// ---- workspace and launches (K1) ----------------------------------------
+// ---- workspace and launches (K1, K3, K4) ------------------------------
 struct WS {
   float* x4;       // (Ppad, 4): x, y, z, ray depth z
   float* raw;      // (Ppad, 4)
@@ -1118,6 +1133,28 @@ inline WS carve(char* base, int n, int S2, int SR, int pg) {
   }
   w.bytes = off;
   return w;
+}
+
+// MODE 1/2's points: the z2 (and SR regulation) points of the n rays,
+// into the workspace's x4, raw, masks and (MODE 2) spill blocks
+inline FwdIO pass2_io(const WS& ws, const float* rays, const float* z2,
+                      const float* treg, const float* bound6, int n, int S2,
+                      int SR) {
+  FwdIO io{};
+  io.rays = rays;
+  io.z2 = z2;
+  io.treg = treg;
+  io.bound6 = bound6;
+  io.x4 = ws.x4;
+  io.raw = ws.raw;
+  io.emb = ws.emb;
+  for (int i = 0; i < 4; ++i) io.h[i] = ws.h[i];
+  io.masks = ws.masks;
+  io.P = (long)n * (S2 + SR);
+  io.ntiles = ws.Ppad / TILE;
+  io.S2 = S2;
+  io.SR = SR;
+  return io;
 }
 
 template <bool PG, bool DRAY>

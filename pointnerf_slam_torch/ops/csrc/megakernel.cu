@@ -1,7 +1,7 @@
 // megakernel: the full render of a ray batch (forward) and its VJP
 // (backward), the two-kernel path the tracker takes when its loss needs
 // cross-ray state (tracking.handle_dynamic's median mask) or has no depth
-// term.
+// term, and the mapper's past fused value-and-grad's cover.
 //
 // Replaces the JAX reference's Pallas TPU kernels ops/megakernel.py:393
 // `_make_fwd_kernel` (K3, pallas_call at :632) and :480 `_make_bwd_kernel`
@@ -9,42 +9,48 @@
 //
 // K3, mk_forward, per ray (rays (n, 8) [o, d, gt_d, far], far already
 // clipped to 1.2 * max(gt_d) over the whole batch by the wrapper):
-//   p1_kernel        pass-1 sigma at S1 stratified z (K2's device code)
+//   fwd_kernel<0>    pass-1 sigma at S1 stratified z: K2's tiles
+//                    (hop::pass1_io), so the same sigma bit for bit
 //   mk_middle        one thread per ray: compositing weights, the
 //                    deterministic inverse CDF (searchsorted 'right' as a
 //                    count of cdf <= u, w + 1e-5, denom < 1e-5 -> 1), and a
 //                    stable rank sort of the S1 + SI merged z (ties by
 //                    original index) -> z2 (n, S2), an output
-//   vg_forward       pass 2 over the z2 points (and, with_reg, the SR
-//                    regulation points), no activation spill
+//   fwd_kernel<1>    pass 2 over the z2 points (and, with_reg, the SR
+//                    regulation points): x4 and raw, no activation spill
 //   mk_composite     one thread per ray: depth, var, colour; sigma at the
 //                    regulation points (100 outside the AABB)
 // K4, mk_backward, given the cotangents (gdep, gvar, gcol) (n, 8) and
-// gsigr (n, SR):
-//   vg_forward       pass 2 recomputed, spilling bf16 emb and h0..h3
+// gsigr (n, SR): K1's launch sequence (hopper_vg.cuh) with its own
+// composite step:
+//   fwd_kernel<2|1>  pass 2 recomputed (with the bf16 spill of emb and
+//                    h0..h3 only when a parameter needs a gradient)
 //   mk_composite_bwd one thread per ray: composite recomputed, then its
 //                    VJP including the var term (var = sum w (z - depth)^2
 //                    depends on depth and on every w); sigma cotangents
 //                    masked to in-AABB points, rgb cotangents everywhere;
 //                    regulation sigma cotangents likewise masked
-//   vg_chain, vg_wgrad + ordered reduce (only when a parameter gradient is
-//                    asked for: the tracker skips them), vg_dray
+//   chain_kernel<PG, true>, then with weight gradients wgrad_kernel and the
+//                    ordered reduce_rows (the tracker skips them), vg_dray
 //                    (d/d(o, d) = sum dx, sum z dx, plus the ||d|| term)
 //
 // The TPU kernels kept a 128-ray tile in VMEM and the backward recomputed
-// pass 2 there. Here the forward writes nothing but its outputs, and the
-// backward recomputes pass 2 and spills its activations for the chain
-// (~0.5 GB at the tracker's 5000 x 44 points): holding a spill from the
-// forward to the backward would keep that memory alive across the loss
+// pass 2 there. Here the forward writes nothing but its outputs (and the
+// ReLU bit masks, 32 bytes per point and layer, that MODE 1 keeps for
+// K1's chain), and the backward recomputes pass 2: holding a spill from
+// the forward to the backward would keep it alive across the loss
 // computation for every iteration, and the recompute costs one forward.
 //
-// Bound on the H100: decoder products, ~0.44 MFLOP per point forward and
-// ~1.33 MFLOP per point for recompute + backward (with weight gradients),
-// over the 989 TFLOP/s bf16 peak; the bytes (rays, z, outputs, the spill)
-// are far below that line at 3.35 TB/s. Like K1 this first version uses
-// WMMA fragments loaded from L2 (no wgmma/TMA pipeline), so it sits well
-// above the bound.
-#include "vg_shared.cuh"
+// Bound on the H100: decoder products, ~0.44 MFLOP per point and pass,
+// over the 989 TFLOP/s bf16 peak: K3 runs two passes (S1 + S2 + SR points
+// per ray; 0.170 ms at the tracker's 5000 x (32 + 44)), K4 the recompute
+// and the dh chain (0.197 ms there), plus the weight gradients when asked
+// for; the bytes (rays, z, outputs, masks, the spill) stay below that
+// line at 3.35 TB/s. The design is the Hopper tile's (hopper_mlp.cuh):
+// persistent 128-point tiles, weights streamed through a shared-memory
+// ring by bulk copies, wgmma with the activations on chip; the per-ray
+// middle and composites run on CUDA cores, one thread per ray.
+#include "hopper_vg.cuh"
 
 namespace {
 
@@ -183,62 +189,54 @@ __global__ void mk_composite_bwd(const float* __restrict__ rays,
   }
 }
 
+// K3's workspace: K4's layout without weight gradients (x4, raw, masks;
+// hop::carve), then the pass-1 sigma
 struct FwdWS {
+  hop::WS ws;
   float* sig1;     // (n, S1)
-  float* x4;       // (Ppad, 4)
-  float* raw;      // (Ppad, 4)
   size_t bytes;
-  long Ppad;
 };
 
 FwdWS carve_fwd(char* base, int n, int S1, int S2, int SR) {
-  FwdWS w{};
-  w.Ppad = padded_points(n, S2, SR);
-  size_t off = 0;
-  auto take = [&](size_t bytes) {
-    char* p = base ? base + off : nullptr;
-    off = align256(off + bytes);
-    return p;
-  };
-  w.sig1 = reinterpret_cast<float*>(take((size_t)n * S1 * 4));
-  w.x4 = reinterpret_cast<float*>(take(w.Ppad * 16));
-  w.raw = reinterpret_cast<float*>(take(w.Ppad * 16));
-  w.bytes = off;
-  return w;
+  FwdWS f{};
+  f.ws = hop::carve(base, n, S2, SR, 0);
+  f.sig1 = reinterpret_cast<float*>(base ? base + f.ws.bytes : nullptr);
+  f.bytes = f.ws.bytes + hop::align256((size_t)n * S1 * 4);
+  return f;
 }
 
-cudaError_t forward(const Weights& w, const float* rays, const float* treg,
-                    const float* bound6, const FwdWS& fw, float* outv,
-                    float* sigr, float* z2, int n, int S1, int SI, int SR,
-                    cudaStream_t stream) {
+cudaError_t forward(const hop::Weights& w, const float* rays,
+                    const float* treg, const float* bound6, const FwdWS& fw,
+                    float* outv, float* sigr, float* z2, int n, int S1,
+                    int SI, int SR, cudaStream_t stream) {
   const int S2 = S1 + SI;
-  CK(launch_p1(w, rays, bound6, fw.sig1, n, S1, stream));
+  CK(hop::launch_fwd<0>(w, hop::pass1_io(rays, bound6, fw.sig1, n, S1),
+                        stream));
   mk_middle<<<(n + 127) / 128, 128, 0, stream>>>(rays, fw.sig1, z2, n, S1,
                                                  SI);
   CK(cudaGetLastError());
-  WS ws{};
-  ws.x4 = fw.x4;
-  ws.raw = fw.raw;
-  ws.Ppad = fw.Ppad;
-  CK(launch_forward(false, w, rays, z2, treg, ws, n, S2, SR, stream));
+  CK(hop::launch_fwd<1>(
+      w, hop::pass2_io(fw.ws, rays, z2, treg, bound6, n, S2, SR), stream));
   mk_composite<<<(n + 127) / 128, 128, 0, stream>>>(
-      rays, z2, fw.x4, fw.raw, bound6, outv, sigr, n, S2, SR);
+      rays, z2, fw.ws.x4, fw.ws.raw, bound6, outv, sigr, n, S2, SR);
   return cudaGetLastError();
 }
 
-cudaError_t backward(const Weights& w, const float* rays, const float* treg,
-                     const float* z2, const float* gsm, const float* gsr,
-                     const float* bound6, const WS& ws, float* dray,
-                     float* grads, int n, int S2, int SR, int param_grads,
-                     cudaStream_t stream) {
-  CK(cudaMemsetAsync(ws.dhead, 0, ws.Ppad * 16, stream));
-  CK(launch_forward(true, w, rays, z2, treg, ws, n, S2, SR, stream));
-  mk_composite_bwd<<<(n + 127) / 128, 128, 0, stream>>>(
-      rays, z2, ws.x4, ws.raw, bound6, gsm, gsr, ws.dhead, ws.gdvec, n, S2,
-      SR);
-  CK(cudaGetLastError());
-  return run_backward(w, ws, n, S2 + SR, param_grads, 1, dray, grads,
-                      stream);
+cudaError_t backward(const hop::Weights& w, const float* rays,
+                     const float* treg, const float* z2, const float* gsm,
+                     const float* gsr, const float* bound6,
+                     const hop::WS& ws, float* dray, float* grads, int n,
+                     int S2, int SR, int param_grads, cudaStream_t stream) {
+  return vg_sequence(
+      w, ws, hop::pass2_io(ws, rays, z2, treg, bound6, n, S2, SR), n,
+      param_grads, 1, dray, grads,
+      [&] {
+        mk_composite_bwd<<<(n + 127) / 128, 128, 0, stream>>>(
+            rays, z2, ws.x4, ws.raw, bound6, gsm, gsr, ws.dhead, ws.gdvec, n,
+            S2, SR);
+        return cudaGetLastError();
+      },
+      stream);
 }
 
 bool bad_sizes(int n, int S1, int SI, int SR) {
@@ -252,9 +250,15 @@ extern "C" long long mk_forward_workspace_bytes(int n, int S1, int SI,
   return (long long)carve_fwd(nullptr, n, S1, S1 + SI, SR).bytes;
 }
 
+// Byte offset of K3's pass-1 sigma (n, S1) f32 in its workspace (a debug
+// entry: the card-only tests read it after a launch).
+extern "C" long long mk_forward_sig1_offset(int n, int S1, int SI, int SR) {
+  return (long long)carve_fwd(nullptr, n, S1, S1 + SI, SR).ws.bytes;
+}
+
 extern "C" long long mk_backward_workspace_bytes(int n, int S2, int SR,
                                                  int pg) {
-  return (long long)carve(nullptr, n, S2, SR, pg).bytes;
+  return (long long)hop::carve(nullptr, n, S2, SR, pg).bytes;
 }
 
 // K3. SR = 0 skips the regulation points (with_reg off).
@@ -264,8 +268,8 @@ extern "C" int mk_forward(const void* const* wp, const float* rays,
                           int SI, int SR, cudaStream_t stream) {
   if (bad_sizes(n, S1, SI, SR)) return (int)cudaErrorInvalidValue;
   const FwdWS fw = carve_fwd(static_cast<char*>(wsp), n, S1, S1 + SI, SR);
-  return (int)forward(weights_from(wp), rays, treg, bound6, fw, outv, sigr,
-                      z2, n, S1, SI, SR, stream);
+  return (int)forward(hop::weights_from(wp), rays, treg, bound6, fw, outv,
+                      sigr, z2, n, S1, SI, SR, stream);
 }
 
 // K4. grads (the flat layout of fused_vg) is written only with param_grads.
@@ -277,7 +281,9 @@ extern "C" int mk_backward(const void* const* wp, const float* rays,
                            int param_grads, cudaStream_t stream) {
   if (bad_sizes(n, S1, SI, SR)) return (int)cudaErrorInvalidValue;
   const int S2 = S1 + SI;
-  const WS ws = carve(static_cast<char*>(wsp), n, S2, SR, param_grads);
-  return (int)backward(weights_from(wp), rays, treg, z2, gsm, gsr, bound6,
-                       ws, dray, grads, n, S2, SR, param_grads, stream);
+  const hop::WS ws = hop::carve(static_cast<char*>(wsp), n, S2, SR,
+                                param_grads);
+  return (int)backward(hop::weights_from(wp), rays, treg, z2, gsm, gsr,
+                       bound6, ws, dray, grads, n, S2, SR, param_grads,
+                       stream);
 }

@@ -13,8 +13,9 @@
 // tile without a spill (MODE 0): persistent 128-point tiles, weights
 // streamed through a shared-memory ring by bulk copies, wgmma
 // m64n256k16 with the activations kept on chip, the head on CUDA cores,
-// one float per point written. The render megakernel (K3) keeps its own
-// WMMA pass 1 (mlp_tile.cuh `p1_kernel`).
+// one float per point written. The render megakernel's pass 1 (K3,
+// megakernel.cu) runs the same tiles (`hop::pass1_io`), so its sigma
+// equals this kernel's bit for bit.
 #include "hopper_mlp.cuh"
 
 extern "C" const char* kernel_error_string(int code) {
@@ -25,12 +26,7 @@ extern "C" int p1_sigma(const void* const* wp, const float* rays,
                         const float* bound6, float* sig1, int n_rays, int S1,
                         cudaStream_t stream) {
   if (n_rays <= 0) return 0;
-  hop::FwdIO io{};
-  io.rays = rays;
-  io.bound6 = bound6;
-  io.sig = sig1;
-  io.P = (long)n_rays * S1;
-  io.ntiles = (io.P + hop::TILE - 1) / hop::TILE;
-  io.S1 = S1;
-  return (int)hop::launch_fwd<0>(hop::weights_from(wp), io, stream);
+  return (int)hop::launch_fwd<0>(hop::weights_from(wp),
+                                 hop::pass1_io(rays, bound6, sig1, n_rays, S1),
+                                 stream);
 }

@@ -1,49 +1,31 @@
-// Device code shared by the fused value-and-grad kernel (fused_vg.cu, K1)
-// and the render megakernel pair (megakernel.cu, K3/K4), whose chain and
-// weight gradients the decoder backward (fused_mlp.cu, K6) also runs: the
-// forward over
-// the merged z2 (and regulation) points with its optional bf16 activation
-// spill, the per-ray composite and its hand-written VJP, the dh chain over
-// the spilled activations, the split-K weight gradients with their ordered
-// reduce, and the per-ray d(loss)/d(o, d) sums.
+// WMMA device code of the decoder backward (fused_mlp.cu, K6): the dh
+// chain over spilled bf16 activations and the split-K weight gradients
+// with their ordered reduce, on mlp_tile.cuh's 64-point tile. K1-K4 run
+// the Hopper tile (hopper_mlp.cuh) instead; the ray-level helpers all of
+// them share are in ray_shared.cuh.
 //
-// Point layout: ray r owns points r * (S2 + SR) + s, s < S2 at z2[r, s],
-// then SR regulation points; the padded point count Ppad is a multiple of
-// CHUNK so every 64-point tile and every weight-gradient split is full.
+// Point layout: as ray_shared.cuh; the padded point count Ppad is a
+// multiple of CHUNK so every 64-point tile and every weight-gradient split
+// is full.
 #pragma once
 
 #include "mlp_tile.cuh"
+#include "ray_shared.cuh"
 
 namespace {
 
 using namespace mlp;
 
-constexpr int MAXS = 64;             // most merged samples per ray
 constexpr int CHUNK = 1024;          // padded point count is a multiple
 constexpr int NSPLIT = 16;           // K splits of the weight gradients
 constexpr int CHAIN_BLOCKS = 264;    // chain grid (2 blocks x 132 SMs)
 constexpr int WTILE = 64;            // weight-gradient output tile
-// small per-block gradient sums, in the order of the flat gradient
-// buffer: dB (3 x 128) | db0..db3 (4 x 256) | dWo (256 x 4) | dbo (4)
-constexpr int SMALL_B = 0, SMALL_BIAS = 384, SMALL_WO = 1408, SMALL_BO = 2432;
-constexpr int SMALL = 2436;
-constexpr long GRAD_W[4] = {SMALL, SMALL + EMB * HID,
-                            SMALL + EMB * HID + HID * HID,
-                            SMALL + EMB * HID + 2 * HID * HID};
 constexpr int LDD = 132;             // f32 row stride of demb in the chain
 constexpr int SM_DH4 = TILE_M * 4 * 4;
 constexpr int SM_DBSUM = 4 * HID * 4;
 constexpr int SM_DBP = 384 * 4;
 constexpr int SM_CHAIN =
     2 * SM_H + SM_XS + SM_DH4 + SM_STAGE + SM_DBSUM + SM_DBP;
-
-__device__ __forceinline__ float sgn(float x) {
-  return x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
-}
-
-__device__ __forceinline__ float bf16r(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 struct WS {
   float* x4;       // (Ppad, 4): x, y, z, ray depth z
@@ -93,164 +75,6 @@ WS carve(char* base, int n, int S2, int SR, int pg) {
   }
   w.bytes = off;
   return w;
-}
-
-// ---- forward over the z2 (and regulation) points ------------------------
-// SPILL: also write the bf16 embedding and hidden activations (emb, h0..h3)
-// for the backward kernels; without it only x4 and raw leave the block.
-template <bool SPILL>
-__global__ void __launch_bounds__(NTHREADS)
-vg_forward(Weights w, const float* __restrict__ rays,
-           const float* __restrict__ z2, const float* __restrict__ treg,
-           float* __restrict__ x4g, float* __restrict__ rawg,
-           bf16* __restrict__ embg, bf16* h0, bf16* h1, bf16* h2, bf16* h3,
-           int n, int S2, int SR) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* xs = reinterpret_cast<float*>(smem);
-  bf16* es = reinterpret_cast<bf16*>(smem + SM_XS);
-  bf16* h0s = reinterpret_cast<bf16*>(smem + SM_XS + SM_ES);
-  bf16* h1s = reinterpret_cast<bf16*>(smem + SM_XS + SM_ES + SM_H);
-  float* stage = reinterpret_cast<float*>(smem + SM_XS + SM_ES + 2 * SM_H);
-
-  const int t = threadIdx.x;
-  const int SP = S2 + SR;
-  const long P = (long)n * SP;
-  const long p0 = (long)blockIdx.x * TILE_M;
-  if (t < TILE_M) {
-    const long p = p0 + t;
-    float x = 0.f, y = 0.f, zc = 0.f, z = 0.f;
-    if (p < P) {
-      const long r = p / SP;
-      const int s = (int)(p % SP);
-      const float* ray = rays + r * 8;
-      if (s < S2) {
-        z = z2[r * S2 + s];
-      } else {
-        // stratified-perturbed regulation depth over [0, 0.85 gt_d]
-        const int j = s - S2;
-        const float g = 0.85f * ray[6];
-        auto base = [&](int k) { return g * ((float)k / (float)(SR - 1)); };
-        const float lo = j > 0 ? 0.5f * (base(j) + base(j - 1)) : base(0);
-        const float hi =
-            j < SR - 1 ? 0.5f * (base(j + 1) + base(j)) : base(SR - 1);
-        z = lo + (hi - lo) * treg[r * SR + j];
-      }
-      x = ray[0] + ray[3] * z;
-      y = ray[1] + ray[4] * z;
-      zc = ray[2] + ray[5] * z;
-    }
-    xs[t * 4 + 0] = x;
-    xs[t * 4 + 1] = y;
-    xs[t * 4 + 2] = zc;
-    xs[t * 4 + 3] = z;
-    x4g[(p0 + t) * 4 + 0] = x;
-    x4g[(p0 + t) * 4 + 1] = y;
-    x4g[(p0 + t) * 4 + 2] = zc;
-    x4g[(p0 + t) * 4 + 3] = z;
-  }
-  __syncthreads();
-  if (SPILL) {
-    embed_tile(xs, w.Bp, es, embg + p0 * EMB);
-    __syncthreads();
-    bf16* const hg[4] = {h0 + p0 * HID, h1 + p0 * HID, h2 + p0 * HID,
-                         h3 + p0 * HID};
-    hidden_layers(w, es, h0s, h1s, stage, hg);
-  } else {
-    embed_tile(xs, w.Bp, es, nullptr);
-    __syncthreads();
-    hidden_layers(w, es, h0s, h1s, stage, nullptr);
-  }
-  rawg[p0 * 4 + t] = head_out(w, h1s, t / 4, t % 4);   // 256 = 64 x 4
-}
-
-inline cudaError_t launch_forward(bool spill, const Weights& w,
-                                  const float* rays, const float* z2,
-                                  const float* treg, const WS& ws, int n,
-                                  int S2, int SR, cudaStream_t stream) {
-  const int ntiles = (int)(ws.Ppad / TILE_M);
-  auto kern = spill ? vg_forward<true> : vg_forward<false>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SM_FWD);
-  if (e != cudaSuccess) return e;
-  kern<<<ntiles, NTHREADS, SM_FWD, stream>>>(
-      w, rays, z2, treg, ws.x4, ws.raw, ws.emb, ws.h[0], ws.h[1], ws.h[2],
-      ws.h[3], n, S2, SR);
-  return cudaGetLastError();
-}
-
-// ---- per-ray composite and its VJP --------------------------------------
-// One ray's S2 samples: alpha, transmittance exp(exclusive sum log v),
-// depth, var = sum w (z - depth)^2, colour. Sigma is 100 outside the AABB.
-struct RayComp {
-  float zs[MAXS], sg[MAXS], al[MAXS], tr[MAXS], vr[MAXS], ex[MAXS];
-  bool ins[MAXS];
-  float depth, var, col[3];
-};
-
-__device__ __forceinline__ void composite_forward(
-    RayComp& c, const float* z2r, const float* x4g, const float* rawg,
-    long pb, int S2, const float* b6, float dn) {
-  for (int s = 0; s < S2; ++s) {
-    c.zs[s] = z2r[s];
-    const float* xp = x4g + (pb + s) * 4;
-    c.ins[s] = inside(xp[0], xp[1], xp[2], b6);
-    c.sg[s] = c.ins[s] ? rawg[(pb + s) * 4 + 3] : 100.f;
-  }
-  float cum = 0.f;
-  c.depth = 0.f;
-  c.col[0] = c.col[1] = c.col[2] = 0.f;
-  for (int s = 0; s < S2; ++s) {
-    const float dist = (s < S2 - 1 ? c.zs[s + 1] - c.zs[s] : 1e10f) * dn;
-    c.ex[s] = expf(-fmaxf(c.sg[s], 0.f) * dist);
-    c.al[s] = 1.f - c.ex[s];
-    c.vr[s] = (1.f - c.al[s]) + 1e-10f;
-    c.tr[s] = expf(cum);
-    cum += logf(fmaxf(c.vr[s], 1e-10f));
-    const float wt = c.al[s] * c.tr[s];
-    c.depth += wt * c.zs[s];
-    for (int k = 0; k < 3; ++k) c.col[k] += wt * rawg[(pb + s) * 4 + k];
-  }
-  c.var = 0.f;
-  for (int s = 0; s < S2; ++s) {
-    const float e = c.zs[s] - c.depth;
-    c.var += c.al[s] * c.tr[s] * (e * e);
-  }
-}
-
-// Composite VJP, division-free. With G_s = dL/dw_s
-//   = gz * z_s + gcol . rgb_s, then extra(s, G_s) for further terms,
-//   dL/dalpha_s = T_s (G_s - c_s R_s),  R_s = sum_{k>s} G_k a_k
-//   prod_{s<j<k} v_j  (R_{s-1} = G_s a_s + v_s R_s), where c_s is the
-// derivative factor of max(1 - a + 1e-10, 1e-10) (1/2 at its tie a = 1).
-// Writes the head cotangents of the S2 points (rgb everywhere, sigma only
-// inside the AABB: the sentinel 100 is a constant) and returns
-// d(loss)/d||d||.
-template <typename Extra>
-__device__ __forceinline__ float composite_vjp(
-    const RayComp& c, const float* rawg, long pb, int S2, float dn,
-    float gz, const float* gcol, float* dhead, Extra extra) {
-  float R = 0.f, ddn = 0.f;
-  for (int s = S2 - 1; s >= 0; --s) {
-    const float* rw = rawg + (pb + s) * 4;
-    float G = gz * c.zs[s] + gcol[0] * rw[0] + gcol[1] * rw[1] +
-              gcol[2] * rw[2];
-    G = extra(s, G);
-    const float cs = c.vr[s] > 1e-10f ? 1.f : 0.5f;
-    const float dal = c.tr[s] * (G - cs * R);
-    R = G * c.al[s] + fmaxf(c.vr[s], 1e-10f) * R;
-    const float dz = s < S2 - 1 ? c.zs[s + 1] - c.zs[s] : 1e10f;
-    const float q = fmaxf(c.sg[s], 0.f);
-    const float rp = c.sg[s] > 0.f ? 1.f : (c.sg[s] == 0.f ? 0.5f : 0.f);
-    const float gsig = dal * (dz * dn) * c.ex[s] * rp;
-    ddn += dal * q * c.ex[s] * dz;
-    const float wt = c.al[s] * c.tr[s];
-    float* dh = dhead + (pb + s) * 4;
-    dh[0] = gcol[0] * wt;
-    dh[1] = gcol[1] * wt;
-    dh[2] = gcol[2] * wt;
-    dh[3] = c.ins[s] ? gsig : 0.f;
-  }
-  return ddn;
 }
 
 // ---- dh chain over stored activations ----------------------------------
@@ -444,40 +268,6 @@ vg_wgrad(const bf16* emb, const bf16* h0, const bf16* h1, const bf16* h2,
           acc[i][j], HID, wmma::mem_row_major);
 }
 
-// out[c] = sum_r part[r * stride + c], rows in order (deterministic)
-__global__ void reduce_rows(const float* __restrict__ part, int nrows,
-                            long stride, int ncols, float* __restrict__ out) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= ncols) return;
-  float s = 0.f;
-  for (int r = 0; r < nrows; ++r) s += part[r * stride + c];
-  out[c] = s;
-}
-
-__global__ void vg_dray(const float* __restrict__ x4g,
-                        const float* __restrict__ dxg,
-                        const float* __restrict__ gdvec,
-                        float* __restrict__ dray, int n, int SP) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  float o[3] = {0.f, 0.f, 0.f}, d[3] = {0.f, 0.f, 0.f};
-  for (int s = 0; s < SP; ++s) {
-    const long p = (long)r * SP + s;
-    const float z = x4g[p * 4 + 3];
-    for (int k = 0; k < 3; ++k) {
-      o[k] += dxg[p * 3 + k];
-      d[k] += z * dxg[p * 3 + k];
-    }
-  }
-  float* row = dray + (long)r * 8;
-  for (int k = 0; k < 3; ++k) {
-    row[k] = o[k];
-    row[3 + k] = d[k] + gdvec[r * 3 + k];
-  }
-  row[6] = 0.f;
-  row[7] = 0.f;
-}
-
 template <bool PG, bool DRAY>
 cudaError_t launch_chain(const Weights& w, const WS& ws, int ntiles,
                          int nblk, cudaStream_t stream) {
@@ -490,12 +280,6 @@ cudaError_t launch_chain(const Weights& w, const WS& ws, int ntiles,
       ws.dh[1], ws.dh[2], ws.dh[3], ws.dx, ws.small, ntiles);
   return cudaGetLastError();
 }
-
-#define CK(x)                                   \
-  do {                                          \
-    cudaError_t e_ = (x);                       \
-    if (e_ != cudaSuccess) return e_;           \
-  } while (0)
 
 // The dh chain over the spilled activations once the head cotangents
 // (ws.dhead) are written: per-point dx into ws.dx (with_dx), then
@@ -529,23 +313,6 @@ inline cudaError_t chain_and_wgrad(const Weights& w, const WS& ws,
     }
   }
   return cudaSuccess;
-}
-
-// Everything after the head cotangents (ws.dhead, ws.gdvec) are written:
-// chain_and_wgrad, then (with_dray) d(loss)/d(rays) into `dray` (zeros
-// without).
-inline cudaError_t run_backward(const Weights& w, const WS& ws, int n,
-                                int SP, int param_grads, int with_dray,
-                                float* dray, float* grads,
-                                cudaStream_t stream) {
-  CK(chain_and_wgrad(w, ws, param_grads, with_dray, grads, stream));
-  if (with_dray) {
-    vg_dray<<<(n + 127) / 128, 128, 0, stream>>>(ws.x4, ws.dx, ws.gdvec,
-                                                 dray, n, SP);
-  } else {
-    CK(cudaMemsetAsync(dray, 0, (size_t)n * 32, stream));
-  }
-  return cudaGetLastError();
 }
 
 }  // namespace

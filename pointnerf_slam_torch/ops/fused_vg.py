@@ -30,8 +30,9 @@ else: CPU tensors take the plain version (`p1_sigma_reference`,
 `fused_vg_reference`), CUDA tensors launch the kernel, anything else
 raises. There is no fallback from a failed build or launch.
 
-Layout: K1 and K2 read the hidden weights as 128-byte-swizzled K-slices
-that their wrappers build from the packed weights on every call
+Layout: K1 and K2 (and the render pair K3/K4, ops/megakernel.py) read
+the hidden weights as 128-byte-swizzled K-slices that their wrappers
+build from the packed weights on every call
 (`PackedWeights.with_images`, `weight_images`, `swizzle128`), so that the
 kernels' 1-D bulk copies land them ready for wgmma.
 
@@ -73,7 +74,7 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-# most merged samples per ray the kernels hold (csrc/vg_shared.cuh MAXS)
+# most merged samples per ray the kernels hold (csrc/ray_shared.cuh MAXS)
 MAX_SAMPLES = 64
 
 
@@ -135,10 +136,10 @@ class PackedWeights:
     """The kernels' layout: Bp (3, 128) f32 (columns >= 93 zero), W0p
     (128, 256) bf16 (rows >= 93 zero), W1..W3 (256, 256) bf16, Wo (256, 4)
     bf16, biases f32. Zero padding is exact: sin(x * 0) = 0 meets zero
-    rows of W0p. K1 and K2 also read the hidden weights as swizzled K-slice
+    rows of W0p. K1-K4 also read the hidden weights as swizzled K-slice
     streams (`weight_images`), built on first need by `with_images`: wf
-    for the forward (K1, K2), wc for the dh chain (K1 only). K3-K6 read
-    Ws alone; a missing stream passes a null pointer."""
+    for the forward (K1-K4), wc for the dh chain (K1, K4). K5/K6 read Ws
+    alone; a missing stream passes a null pointer."""
     Bp: torch.Tensor
     Ws: tuple          # W0p, W1, W2, W3, Wo (bf16)
     bs: tuple          # b0, b1, b2, b3, bo (f32)
@@ -193,7 +194,7 @@ _IMAGE_INDEX: dict = {}
 
 
 def weight_images(Ws, fwd: bool = True, chain: bool = True) -> tuple:
-    """The K-slice streams of K1/K2 from W0p, W1..W3 (bf16), each only if
+    """The K-slice streams of K1-K4 from W0p, W1..W3 (bf16), each only if
     asked for (else None): wf (fwd), the forward's B operands (out = in @
     W_l, K-major: W_l^T), 2 + 3 x 4 slices of 256 x 64; wc (chain), the
     chain's (dh_{L-1} = dh_L @ W_L^T, K-major: W_L itself) for L = 3, 2, 1

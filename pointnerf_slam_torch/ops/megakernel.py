@@ -23,13 +23,20 @@ CUDA tensors run the hand-written kernels of csrc/megakernel.cu: the
 forward launches K3 (replaces the JAX reference's ops/megakernel.py:393
 `_make_fwd_kernel`), the backward K4 (:480 `_make_bwd_kernel`) with the
 incoming cotangents (gdep, gvar, gcol, gsigr); K4 skips the weight
-gradients when no parameter needs one (the tracker). K3 keeps no pass-2
+gradients when no parameter needs one (the tracker). Both run on the
+Hopper tile of K1/K2 (csrc/hopper_mlp.cuh: persistent 128-point tiles,
+weights streamed as swizzled K-slices, wgmma), bound by the decoder's
+bf16 products (~0.17 / ~0.20 ms at the tracker's 5000 x (32 + 12)): K3 is
+K2's pass 1, a per-ray middle, K1's forward and a per-ray composite; K4
+is K1's launch sequence with the composite VJP as its per-ray step. K3
+reads the forward weight image (wf), K4 also the chain's (wc); each
+wrapper builds only the image its kernel reads. K3 keeps no pass-2
 activations; K4 recomputes pass 2 (as the TPU kernel does) and spills
-its bf16 activations only for its own dh chain, so nothing of that size
-(~0.5 GB at the tracker's 5000 x 44 points) lives across the caller's
-loss. CPU tensors take the plain version `fused_render_reference`
-(`plain_z2` then `render_at`), differentiated by autograd. Anything else
-raises; there is no fallback from a failed build or launch.
+its bf16 activations only for its own weight gradients, so nothing of
+that size lives across the caller's loss. CPU tensors take the plain
+version `fused_render_reference` (`plain_z2` then `render_at`),
+differentiated by autograd. Anything else raises; there is no fallback
+from a failed build or launch.
 """
 
 from __future__ import annotations
@@ -107,11 +114,15 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def k3_forward(pw, rays_o, rays_d, gt_d, t_reg, bound, S1: int, SI: int,
-               with_reg: bool):
-    """Launch K3 on CUDA tensors. Returns depth (N,), var (N,), colour
-    (N, 3), sigma_reg (N, SR) (zeros without reg), z2 (N, S1 + SI) and what
-    K4 needs (rays, t_reg, bound, SR launched)."""
+def k3_launch(lib, pw, rays_o, rays_d, gt_d, t_reg, bound, S1: int,
+              SI: int, with_reg: bool):
+    """K3's C call `mk_forward` of `lib` (csrc/megakernel.cu, or another
+    build of it) on buffers prepared once: returns (launch, outputs), each
+    launch() runs the kernel and raises on a CUDA error. outputs: outv
+    (N, 8) [depth, var, colour, 0...], sigma_reg (N, SR) (zeros without
+    reg), z2 (N, S1 + SI), what K4 needs (rays, t_reg, bound, SR launched)
+    and the workspace (its pass-1 sigma at byte offset
+    `mk_forward_sig1_offset`)."""
     n = rays_o.shape[0]
     SR = t_reg.shape[1]
     SRk = SR if with_reg else 0
@@ -126,7 +137,6 @@ def k3_forward(pw, rays_o, rays_d, gt_d, t_reg, bound, S1: int, SI: int,
     _check(b6, (6,), torch.float32, "bound")
     if with_reg:
         _check(treg, (n, SR), torch.float32, "t_reg")
-    lib = build.load("megakernel")
     lib.mk_forward_workspace_bytes.restype = ctypes.c_longlong
     lib.mk_forward.restype = ctypes.c_int
     ws = torch.empty(int(lib.mk_forward_workspace_bytes(
@@ -136,14 +146,31 @@ def k3_forward(pw, rays_o, rays_d, gt_d, t_reg, bound, S1: int, SI: int,
     sigr = (torch.empty(n, SR, device=dev) if with_reg
             else torch.zeros(n, SR, device=dev))
     z2 = torch.empty(n, S1 + SI, device=dev)
-    rc = lib.mk_forward(pw.pointers(), _ptr(rays), _ptr(treg), _ptr(b6),
-                        _ptr(ws), _ptr(outv), _ptr(sigr), _ptr(z2),
-                        ctypes.c_int(n), ctypes.c_int(S1), ctypes.c_int(SI),
-                        ctypes.c_int(SRk), _stream(rays))
-    build.check(lib, rc, "mk_forward")
+    pw = pw.with_images(chain=False)
+    args = (pw.pointers(), _ptr(rays), _ptr(treg), _ptr(b6), _ptr(ws),
+            _ptr(outv), _ptr(sigr), _ptr(z2), ctypes.c_int(n),
+            ctypes.c_int(S1), ctypes.c_int(SI), ctypes.c_int(SRk),
+            _stream(rays))
+
+    def launch():
+        build.check(lib, lib.mk_forward(*args), "mk_forward")
+    # the launch keeps every buffer it points at alive
+    launch.keep = (pw, rays, treg, b6, ws, outv, sigr, z2)
+    return launch, (outv, sigr, z2, (rays, treg, b6, SRk), ws)
+
+
+def k3_forward(pw, rays_o, rays_d, gt_d, t_reg, bound, S1: int, SI: int,
+               with_reg: bool):
+    """Launch K3 on CUDA tensors. Returns depth (N,), var (N,), colour
+    (N, 3), sigma_reg (N, SR) (zeros without reg), z2 (N, S1 + SI) and what
+    K4 needs (rays, t_reg, bound, SR launched)."""
+    launch, (outv, sigr, z2, saved, _) = k3_launch(
+        build.load("megakernel"), pw, rays_o, rays_d, gt_d, t_reg, bound,
+        S1, SI, with_reg)
+    launch()
     launches["megakernel_fwd"] += 1
     return (outv[:, 0].clone(), outv[:, 1].clone(), outv[:, 2:5].clone(),
-            sigr, z2, (rays, treg, b6, SRk))
+            sigr, z2, saved)
 
 
 class _FusedRenderFn(torch.autograd.Function):
@@ -175,11 +202,13 @@ class _FusedRenderFn(torch.autograd.Function):
                 dray[:, 3:6], *dps)
 
 
-def k4_backward(pw, rays, treg, z2, b6, gdep, gvar, gcol, gsigr, S1: int,
-                SRk: int, param_grads: bool):
-    """Launch K4 with the cotangents of (depth, var, colour, sigma_reg).
-    Returns dray (N, 8) [d_o, d_d, 0, 0] and the flat weight gradients
-    (fused_vg's layout; a 1-element dummy without param_grads)."""
+def k4_launch(lib, pw, rays, treg, z2, b6, gdep, gvar, gcol, gsigr,
+              S1: int, SRk: int, param_grads: bool):
+    """K4's C call `mk_backward` of `lib` (csrc/megakernel.cu, or another
+    build of it) on buffers prepared once: returns (launch, (dray (N, 8)
+    [d_o, d_d, 0, 0], the flat weight gradients (fused_vg's layout; a
+    1-element dummy without param_grads))); each launch() runs the kernel
+    and raises on a CUDA error."""
     n, dev = rays.shape[0], rays.device
     S2 = z2.shape[1]
     gsm = torch.zeros(n, 8, device=dev)
@@ -188,7 +217,6 @@ def k4_backward(pw, rays, treg, z2, b6, gdep, gvar, gcol, gsigr, S1: int,
     gsm[:, 2:5] = gcol
     gsr = (gsigr.float().contiguous() if SRk
            else torch.zeros(n, 1, device=dev))
-    lib = build.load("megakernel")
     lib.mk_backward_workspace_bytes.restype = ctypes.c_longlong
     lib.mk_backward.restype = ctypes.c_int
     pg = int(bool(param_grads))
@@ -197,14 +225,30 @@ def k4_backward(pw, rays, treg, z2, b6, gdep, gvar, gcol, gsigr, S1: int,
         ctypes.c_int(pg))), dtype=torch.uint8, device=dev)
     dray = torch.empty(n, 8, device=dev)
     grads = torch.empty(GRAD_LEN if pg else 1, device=dev)
-    rc = lib.mk_backward(pw.pointers(), _ptr(rays), _ptr(treg), _ptr(z2),
-                         _ptr(gsm), _ptr(gsr), _ptr(b6), _ptr(ws),
-                         _ptr(dray), _ptr(grads), ctypes.c_int(n),
-                         ctypes.c_int(S1), ctypes.c_int(S2 - S1),
-                         ctypes.c_int(SRk), ctypes.c_int(pg), _stream(rays))
-    build.check(lib, rc, "mk_backward")
+    pw = pw.with_images(chain=True)
+    args = (pw.pointers(), _ptr(rays), _ptr(treg), _ptr(z2), _ptr(gsm),
+            _ptr(gsr), _ptr(b6), _ptr(ws), _ptr(dray), _ptr(grads),
+            ctypes.c_int(n), ctypes.c_int(S1), ctypes.c_int(S2 - S1),
+            ctypes.c_int(SRk), ctypes.c_int(pg), _stream(rays))
+
+    def launch():
+        build.check(lib, lib.mk_backward(*args), "mk_backward")
+    # the launch keeps every buffer it points at alive
+    launch.keep = (pw, rays, treg, z2, gsm, gsr, b6, ws, dray, grads)
+    return launch, (dray, grads)
+
+
+def k4_backward(pw, rays, treg, z2, b6, gdep, gvar, gcol, gsigr, S1: int,
+                SRk: int, param_grads: bool):
+    """Launch K4 with the cotangents of (depth, var, colour, sigma_reg).
+    Returns dray (N, 8) [d_o, d_d, 0, 0] and the flat weight gradients
+    (fused_vg's layout; a 1-element dummy without param_grads)."""
+    launch, out = k4_launch(build.load("megakernel"), pw, rays, treg, z2,
+                            b6, gdep, gvar, gcol, gsigr, S1, SRk,
+                            param_grads)
+    launch()
     launches["megakernel_bwd"] += 1
-    return dray, grads
+    return out
 
 
 def make_fused_render(rcfg, with_reg: bool = True):

@@ -223,3 +223,64 @@ def test_data_inputs_get_no_gradient():
         params_from_jax(tree), torch.as_tensor(o), torch.as_tensor(d), gtt,
         tr, torch.as_tensor(BOUND))
     assert not (dep.requires_grad or sig.requires_grad)
+
+
+class _StubFn:
+    """A C entry of a stub library: records its arguments, returns `ret`."""
+
+    def __init__(self, ret):
+        self.ret, self.calls = ret, []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return self.ret
+
+
+def test_launches_size_workspaces_and_pass_only_the_images_read(
+        monkeypatch):
+    """k3_launch / k4_launch (the wrappers' marshalling, also the kernel
+    comparison script's) on a stub library: K3 gets the forward weight
+    image and a null chain image, K4 both (no image is built that its
+    kernel never reads); each sizes its workspace by the library's answer
+    for (n, S1, SI, SR launched) / (n, S2, SR launched, weight grads) and
+    passes the sample counts the kernel takes."""
+    import ctypes
+
+    from pointnerf_slam_torch.ops import fused_vg as F
+    from pointnerf_slam_torch.ops import megakernel as MK
+    monkeypatch.setattr(MK, "_check", lambda *a: None)
+    monkeypatch.setattr(MK, "_stream", lambda t: ctypes.c_void_p(0))
+    lib = type("Lib", (), {})()
+    lib.mk_forward_workspace_bytes = _StubFn(4096)
+    lib.mk_backward_workspace_bytes = _StubFn(8192)
+    lib.mk_forward, lib.mk_backward = _StubFn(0), _StubFn(0)
+    tree, o, d, gt, t_reg, _ = setup(40, 7, 24, 8)
+    pw = F.pack_weights(params_from_jax(tree))
+    T = torch.as_tensor
+    for with_reg in (False, True):
+        launch, (outv, sigr, z2, saved, ws) = MK.k3_launch(
+            lib, pw, T(o), T(d), T(gt), T(t_reg), T(BOUND), 24, 8, with_reg)
+        launch()
+        args = lib.mk_forward.calls[-1]
+        wp = args[0]
+        assert len(wp) == 13 and wp[11] is not None and wp[12] is None
+        SRk = 24 if with_reg else 0
+        assert saved[3] == SRk and ws.numel() == 4096
+        assert [a.value for a in lib.mk_forward_workspace_bytes.calls[-1]] \
+            == [40, 24, 8, SRk]
+        assert [a.value for a in args[8:12]] == [40, 24, 8, SRk]
+        assert z2.shape == (40, 32) and sigr.shape == (40, 24)
+    rays, treg, b6, SRk = saved
+    n = rays.shape[0]
+    for pg in (False, True):
+        launch, (dray, grads) = MK.k4_launch(
+            lib, pw, rays, treg, z2, b6, torch.zeros(n), torch.zeros(n),
+            torch.zeros(n, 3), torch.zeros(n, 24), 24, SRk, pg)
+        launch()
+        args = lib.mk_backward.calls[-1]
+        assert args[0][11] is not None and args[0][12] is not None
+        assert [a.value for a in lib.mk_backward_workspace_bytes.calls[-1]] \
+            == [40, 32, 24, int(pg)]
+        assert [a.value for a in args[10:15]] == [40, 24, 8, 24, int(pg)]
+        assert dray.shape == (40, 8)
+        assert grads.numel() == (F.GRAD_LEN if pg else 1)
