@@ -7,12 +7,14 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. device: needs CUDA; prints `nvidia-smi --query-gpu=name,power.limit`
   2. build: compiles every kernel from pointnerf_slam_torch/ops/csrc with
      nvcc for sm_90a, one process per source, all started together;
-     prints the seconds, ptxas' register and spill lines and each
-     library's count of HGMMA (wgmma) instructions (cuobjdump -sass);
-     fails if fused_vg, p1_sigma or megakernel has none, if ptxas reports
-     a spilled byte in any kernel of the four libraries, or if fused_vg or
-     megakernel holds one of the WMMA kernels (vg_forward, vg_chain,
-     vg_wgrad, p1_kernel) that K1-K4 left for the Hopper tile
+     prints the seconds, ptxas' register and spill lines, each library's
+     kernels and its counts of HGMMA (wgmma) and HMMA (mma.sync, what WMMA
+     compiles to) instructions (cuobjdump -sass); fails if a library has
+     no HGMMA, if ptxas reports a spilled byte in any kernel of the four
+     libraries, if a library holds a WMMA kernel (HMMA instructions, or
+     one of the retired WMMA tile's kernels: vg_forward, vg_chain,
+     vg_wgrad, p1_kernel, mlp_points), or if p1_sigma holds the
+     backward's wgrad_kernel (K2 builds the forward tile alone)
   3. kernels, random cell: at the main paths' shapes (5000 rays, 32+12
      samples, 32 regulation samples, 256-wide MLP) and a random decoder,
      each kernel is held against its plain PyTorch version on the same
@@ -27,8 +29,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                          K5 at a 500,000-point chunk of room_bench's mesh
                          grid and at the mapper's plain-path 539,784
                          points, K6 at the 379,848 its loss reaches (random
-                         and the loss's own cotangent); the decoder as five
-                         bf16 torch.matmul calls is timed beside K5
+                         and the loss's own cotangent); yardsticks timed
+                         beside them: the decoder as five bf16
+                         torch.matmul calls (K5), and K6's eight products
+                         (the chain's four, the weight gradients' four)
   4. engine: the bench workload (680x1200, 6-frame window) through the
      port's tracker (50 iterations, K=5) and fused-outer mapper (3 x 100,
      K=4, no BA); ms per iteration; losses finite and falling
@@ -162,13 +166,16 @@ def bound_ms(flops: float, nbytes: float):
                                        else "bytes")
 
 
-# WMMA kernels of mlp_tile.cuh / vg_shared.cuh that only K5/K6 may keep
-WMMA_KERNELS = ("vg_forward", "vg_chain", "vg_wgrad", "p1_kernel")
+# kernels of the retired WMMA tile, which no library may hold
+WMMA_KERNELS = ("vg_forward", "vg_chain", "vg_wgrad", "p1_kernel",
+                "mlp_points")
 
 
 def sass_summary(build, names) -> dict:
-    """{library: (count of HGMMA (wgmma) instructions in its SASS, names of
-    its kernels)} from cuobjdump -sass."""
+    """{library: (count of HGMMA (wgmma) instructions in its SASS, count of
+    HMMA (mma.sync, what WMMA compiles to) instructions, names of its
+    kernels)} from cuobjdump -sass."""
+    import re
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = {}
@@ -177,6 +184,7 @@ def sass_summary(build, names) -> dict:
                               capture_output=True, text=True,
                               timeout=300).stdout.splitlines()
         out[name] = (sum("HGMMA" in ln for ln in sass),
+                     sum(bool(re.search(r"\bHMMA\b", ln)) for ln in sass),
                      [ln.split("Function :", 1)[1].strip() for ln in sass
                       if "Function :" in ln])
     return out
@@ -889,7 +897,13 @@ def phase_kernels_mlp(torch, report, dec, cell, rays_of, bound,
     the mapper's loss reaches (4998 x (44 + 32)), with a random cotangent
     and with the mapper loss's own. rays_of(n) -> (rays_o, rays_d, gt_d,
     gt_c) on the card. With timing, the kernels, their plain versions and
-    the decoder as five bf16 torch.matmul calls are timed."""
+    two yardsticks are timed: the decoder as five bf16 torch.matmul calls
+    at K5's shapes, and bf16 torch.matmul calls at K6's product shapes
+    (the chain's three N x 256 x 256 and one N x 256 x 93, the weight
+    gradients' four: N-deep 93 x 256 and three 256 x 256), alone and
+    after the five of the forward K6 recomputes. No single PyTorch call
+    computes either function, so library_ms stays null and the yardsticks
+    go under yardstick_ms."""
     from pointnerf_slam_torch.ops import fused_mlp as M
     from pointnerf_slam_torch.ops import fused_vg as F
     dev = torch.device("cuda")
@@ -929,31 +943,44 @@ def phase_kernels_mlp(torch, report, dec, cell, rays_of, bound,
           for k, m in ((93, 256), (256, 256), (256, 256), (256, 256),
                        (256, 4))]
     a0 = torch.randn(n5, 93, generator=gen, device=dev).to(torch.bfloat16)
+    d6 = torch.randn(n6, 256, generator=gen, device=dev).to(torch.bfloat16)
 
-    def five_matmuls():
-        h = a0
+    def five_matmuls(a):
+        h = a
         for w in ws:
             h = torch.matmul(h, w)
         return h
 
-    mm = timed(five_matmuls)
+    def eight_matmuls():
+        for w in ws[3:0:-1]:
+            torch.matmul(d6, w.t())
+        torch.matmul(d6, ws[0].t())
+        torch.matmul(a0[:n6].t(), d6)
+        for _ in range(3):
+            torch.matmul(d6.t(), d6)
+
+    mm = timed(lambda: five_matmuls(a0))
+    mm6 = timed(eight_matmuls)
+    mm6f = timed(lambda: (five_matmuls(a0[:n6]), eight_matmuls()))
     b5, by5 = bound_ms(n5 * FLOP_FWD, n5 * 28 + nw)
     b6, by6 = bound_ms(n6 * FLOP_FWD * 3, n6 * 40 + nw + F.GRAD_LEN * 4)
     print(f"kernels: K5 {ms5:.3f} ms at {n5} points (plain {pms5:.3f} ms, "
           f"bound {b5:.4f} ms by {by5}; five bf16 torch.matmul calls at "
           f"the same shapes {mm:.3f} ms), {ms5m:.3f} ms at the mapper's "
           f"{x_all.shape[0]}; K6 {ms6:.3f} ms at {n6} points with weight "
-          f"gradients (plain {pms6:.3f} ms, bound {b6:.4f} ms by {by6}), "
-          f"{ms6t:.3f} ms dx only", flush=True)
+          f"gradients (plain {pms6:.3f} ms, bound {b6:.4f} ms by {by6}; "
+          f"its eight bf16 torch.matmul products {mm6:.3f} ms, "
+          f"{mm6f:.3f} ms after the forward's five), {ms6t:.3f} ms dx only",
+          flush=True)
     src = "pointnerf_slam_torch/ops/csrc/fused_mlp.cu"
     rows[0].update(route="cuda", source=src,
                    replaces="pointnerf_slam_tpu/ops/fused_mlp.py:104",
                    ms=ms5, plain_ms=pms5, bound_ms=b5, bound_by=by5,
-                   library_ms=None, bound_share=b5 / ms5)
+                   library_ms=None, yardstick_ms=mm, bound_share=b5 / ms5)
     rows[1].update(route="cuda", source=src,
                    replaces="pointnerf_slam_tpu/ops/fused_mlp.py:116",
                    ms=ms6, plain_ms=pms6, bound_ms=b6, bound_by=by6,
-                   library_ms=None, bound_share=b6 / ms6)
+                   library_ms=None, yardstick_ms=mm6, bound_share=b6 / ms6)
 
 
 
@@ -1548,17 +1575,20 @@ def main() -> int:
             if "registers" in ln or "spill" in ln:
                 print(f"build: {name}: {ln.strip()}")
     sass = sass_summary(build, logs)
-    print(f"build: HGMMA instructions per library (cuobjdump -sass): "
-          f"{ {k: v[0] for k, v in sass.items()} }", flush=True)
-    for name in ("fused_vg", "p1_sigma", "megakernel"):
-        if not sass[name][0]:
+    print(f"build: HGMMA / HMMA instructions per library (cuobjdump "
+          f"-sass): { {k: v[:2] for k, v in sass.items()} }", flush=True)
+    for name in build.SOURCES:
+        hgmma, hmma, kernels = sass[name]
+        wmma = [f for f in kernels if any(k in f for k in WMMA_KERNELS)]
+        print(f"build: {name}: {len(kernels)} kernels: {kernels}; WMMA "
+              f"kernels among them: {wmma}", flush=True)
+        if not hgmma:
             fail(f"build: {name} has no HGMMA (wgmma) instruction")
-    for name in ("fused_vg", "megakernel"):
-        wmma = [f for f in sass[name][1] if any(k in f for k in WMMA_KERNELS)]
-        print(f"build: {name}: {len(sass[name][1])} kernels, WMMA kernels "
-              f"among them: {wmma}", flush=True)
-        if wmma:
-            fail(f"build: {name} holds WMMA kernels {wmma}")
+        if hmma or wmma:
+            fail(f"build: {name} holds WMMA kernels {wmma} ({hmma} HMMA "
+                 f"instructions)")
+    if any("wgrad_kernel" in f for f in sass["p1_sigma"][2]):
+        fail("build: p1_sigma holds the backward's wgrad_kernel")
     spills = {k: spilled(v) for k, v in logs.items() if spilled(v)}
     if spills:
         fail(f"build: ptxas reports spilled bytes: {spills}")

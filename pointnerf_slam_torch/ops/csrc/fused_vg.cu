@@ -17,7 +17,7 @@
 //   vg_composite  one thread per ray: depth/var/colour, loss, closed-form
 //                 cotangents (sign(0) = 0), the composite VJP by hand, the
 //                 ||d|| term; writes the (P, 4) head cotangent
-//   chain_kernel  128-point tiles (hopper_mlp.cuh): dh chain on wgmma with
+//   chain_kernel  128-point tiles (hopper_bwd.cuh): dh chain on wgmma with
 //                 bf16 cotangents, masks from the bits, cos(x.B) in f32,
 //                 per-point d(loss)/dx, per-block bias / head / B sums
 //   wgrad_kernel  dW_l = in_l^T @ dh_l on wgmma over all points: split-K
@@ -27,14 +27,14 @@
 // Bound on the H100 (mapper call, 379,848 points padded to 380,928):
 // 0.510 ms of bf16 tensor-core work (forward, dh chain, weight gradients
 // at 989 TFLOP/s); the spill's byte floor is ~3.9 GB, ~1.17 ms at
-// 3.35 TB/s (hopper_mlp.cuh). The design: weights streamed through a
+// 3.35 TB/s (hopper_bwd.cuh). The design: weights streamed through a
 // shared-memory ring by bulk copies, wgmma with activations kept on chip,
 // spills and their reloads as whole 32 KB bulk copies, ReLU masks as bits
 // (the tracker's chain reads 32 bytes per point and layer), and every
 // cross-block sum a partial plus an ordered reduce, so results are
 // bit-reproducible. The launch sequence is hopper_vg.cuh's, shared with
-// K4 (megakernel.cu); vg_composite, vg_dray and reduce_rows build on
-// ray_shared.cuh.
+// K4 (megakernel.cu) and K6 (fused_mlp.cu); vg_composite, vg_dray and
+// reduce_rows build on ray_shared.cuh.
 #include "hopper_vg.cuh"
 
 namespace {
@@ -138,16 +138,16 @@ cudaError_t run(const hop::Weights& w, const float* rays, const float* aux,
                 int n, int S2, int SR, int tracker, int with_color,
                 int param_grads, int with_dray, float w_color, float w_reg,
                 float w_beyond, cudaStream_t stream) {
+  const hop::FwdIO io = hop::pass2_io(ws, rays, z2, treg, n, S2, SR);
   return vg_sequence(
-      w, ws, hop::pass2_io(ws, rays, z2, treg, bound6, n, S2, SR), n,
-      param_grads, with_dray, dray, grads,
+      w, ws, io, param_grads, with_dray, grads,
       [&] {
         vg_composite<<<(n + 127) / 128, 128, 0, stream>>>(
             rays, aux, z2, ws.x4, ws.raw, bound6, outv, ws.dhead, ws.gdvec,
             n, S2, SR, tracker, with_color, w_color, w_reg, w_beyond);
         return cudaGetLastError();
       },
-      stream);
+      [&] { return ray_sums(ws, io, n, with_dray, dray, stream); }, stream);
 }
 
 // One m64n256k16 x 4 product of the wgmma path on images laid out as the
@@ -191,6 +191,16 @@ __global__ void __launch_bounds__(128) mma_probe(const uint4* a, const uint4* b,
 
 extern "C" long long fused_vg_workspace_bytes(int n, int S2, int SR, int pg) {
   return (long long)hop::carve(nullptr, n, S2, SR, pg).bytes;
+}
+
+// Byte offset of the forward's x4 (which = 0) or raw (which = 1), both
+// (Ppad, 4) f32, in K1's workspace (a debug entry: the card-only tests
+// read them after a launch).
+extern "C" long long fused_vg_ws_offset(int n, int S2, int SR, int pg,
+                                        int which) {
+  char* const base = reinterpret_cast<char*>(uintptr_t(1) << 20);
+  const hop::WS ws = hop::carve(base, n, S2, SR, pg);
+  return (long long)(reinterpret_cast<char*>(which ? ws.raw : ws.x4) - base);
 }
 
 extern "C" int fused_vg(const void* const* wp, const float* rays,

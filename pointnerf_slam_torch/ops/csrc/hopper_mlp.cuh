@@ -1,23 +1,20 @@
-// Hopper tile of the iMAP* decoder: the forward and backward building
-// blocks of K1 (fused_vg.cu), K2 (p1_sigma.cu) and the render megakernel
-// pair K3/K4 (megakernel.cu), for sm_90a.
+// Hopper tile of the iMAP* decoder, for sm_90a: the PTX helpers and the
+// forward tile that every kernel of the port runs, K1 (fused_vg.cu), K2
+// (p1_sigma.cu), the render megakernel pair K3/K4 (megakernel.cu) and the
+// decoder pair K5/K6 (fused_mlp.cu). The backward pieces (dh chain, weight
+// gradients, the workspace) are in hopper_bwd.cuh, which only K1, K3/K4
+// and K6 include; K2 builds the forward alone.
 //
-// Replaces, on those kernels, the WMMA tile of mlp_tile.cuh /
-// vg_shared.cuh (which K5/K6 keep). The TPU kernels are the JAX
-// reference's ops/fused_vg.py:304 `_make_vg_kernel` (K1), :284
-// `_make_p1_kernel` (K2) and ops/megakernel.py:393 / :480 (K3 / K4).
+// The TPU kernels are the JAX reference's ops/fused_vg.py:304
+// `_make_vg_kernel` (K1), :284 `_make_p1_kernel` (K2), ops/megakernel.py
+// :393 / :480 (K3 / K4) and ops/fused_mlp.py:104 / :116 (K5 / K6).
 //
 // What bounds the work on the H100 (989 TFLOP/s bf16, 3.35 TB/s): the
 // decoder is 2 x (93*256 + 3*256*256 + 256*4) = 442,880 FLOP per point and
-// pass; K1's mapper call (379,848 points padded to 380,928) runs the
-// forward, the dh chain and the weight gradients, 0.510 ms of tensor-core
-// time. Spilling the activations between those three kernels has a byte
-// floor: forward writes emb and h0..h3 (877 MB), the chain reads h and
-// writes dh (780 + 780 MB), the weight gradients read emb, h0..h2 and dh
-// (683 + 780 MB): ~3.9 GB, ~1.17 ms. With the bit masks below, this
-// design's floor is ~3.4 GB, ~1.02 ms: forward 877 MB of values and 49 MB
-// of masks, chain 195 MB of h3 (for dWo), 49 MB of masks and 780 MB of dh,
-// weight gradients 1463 MB. K2 (no spill) is bound by operations.
+// pass; a forward that writes only its output (K2: one float, K5: four,
+// per point, against 12-36 bytes read) is bound by those operations
+// (K5 at the mesher's 500,000-point chunk: 0.224 ms). The spill of the
+// backward's runs is reckoned in hopper_bwd.cuh.
 //
 // The design, against those bounds:
 //  - one block per SM, persistent over 128-point tiles: warpgroups 0-1
@@ -41,18 +38,15 @@
 //    the weight-gradient GEMM's bulk loads need;
 //  - ReLU masks leave as bits in the accumulator's register order (16
 //    bytes per thread and layer), so the chain reads 32 bytes per point and
-//    layer instead of h (512 bytes; it still reads h3 for dWo);
-//  - weight gradients: a wgmma GEMM over the points (MN-major operands,
-//    128 x 256 output tiles, split-K over 18 splits, 126 blocks), partials
-//    summed by the ordered reduce_rows: no atomics, bit-reproducible.
+//    layer instead of h (512 bytes).
 //
-// Numerics, as the WMMA version and the TPU kernels: x . B is the float32
-// FMA chain fma(x2, B2, fma(x1, B1, x0 * B0)) under -fmad=false, emb =
-// sinf of it, rounded to bf16; hidden products bf16 x bf16 with f32 sums;
-// the head (256 -> 4) on CUDA cores from the bf16-rounded h3: each thread
-// sums its 64 columns in order, then the four threads of a quad add by
-// shfl_xor 1 then 2, then + bo; the chain rounds its cotangents to bf16
-// before each product; sigma is 100 outside the AABB.
+// Numerics, those of the TPU kernels: x . B is the float32 FMA chain
+// fma(x2, B2, fma(x1, B1, x0 * B0)) under -fmad=false, emb = sinf of it,
+// rounded to bf16; hidden products bf16 x bf16 with f32 sums; the head
+// (256 -> 4) on CUDA cores from the bf16-rounded h3: each thread sums its
+// 64 columns in order, then the four threads of a quad add by shfl_xor 1
+// then 2, then + bo; sigma is 100 outside the AABB in pass 1 (K2, K3);
+// the decoder on arbitrary points (K5, K6) has no sentinel.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -72,9 +66,6 @@ constexpr int SLICE = 64 * HID * 2; // one ring stage: 64 K-rows x 256 bf16
 constexpr int ATILE = 64 * HID * 2; // one warpgroup's activation tile
 constexpr int CHUNK_B = 64 * 128;   // 64 rows x one 128-byte swizzle row
 constexpr int FWD_SLICES = 2 + 3 * 4;      // K-slices per forward tile
-constexpr int CHAIN_SLICES = 3 * 4 + 4;    // per chain tile (last 4: 16 KB)
-constexpr int NSPLIT_W = 18;        // weight-gradient K splits (7 x 18 blocks)
-constexpr int WG_MTILES = 7;        // 128-row output tiles: 1 + 3 x 2
 
 // The decoder in the kernels' layout (the Python wrapper's pointer array):
 // Bp (3,128) f32, W0p..W3, Wo (256,4) bf16, b0..b3, bo f32, then the two
@@ -403,19 +394,23 @@ __device__ __forceinline__ void ring_drain(uint64_t* empty, int it_last) {
   if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[it_last % S]);
 }
 
-// ---- forward tile (K2 and K1's forward) ---------------------------------
-// MODE 0: pass-1 sigma (K2): points z = 0.01 gt_d (1 - t) + far t, writes
-//         sig (100 outside the AABB), nothing else;
-// MODE 1: K1's forward over the z2 (+ regulation) points: writes x4, raw
-//         and the ReLU bit masks of h0..h3;
-// MODE 2: MODE 1 and the bf16 spill of emb and h0..h3 (weight gradients).
+// ---- forward tile (K1-K6) ------------------------------------------------
+// MODE 0: pass-1 sigma (K2, K3): points z = 0.01 gt_d (1 - t) + far t,
+//         writes sig (100 outside the AABB), nothing else;
+// MODE 1: the forward of a backward (K1, K3's pass 2, K4, K6): writes x4,
+//         raw and the ReLU bit masks of h0..h3 for points up to Ppad;
+// MODE 2: MODE 1 and the bf16 spill of emb and h0..h3 (weight gradients);
+// MODE 3: the decoder alone (K5): writes raw for the P real points only.
+// Points of MODES 1-3: row p of pts (x, y, z; ray depth 0) when pts is
+// set, else the z2 (+ regulation) points of the rays.
 struct FwdIO {
   const float* rays;     // (n, 8) [o, d, gt_d, far]
   const float* z2;       // (n, S2)
   const float* treg;     // (n, SR)
-  const float* bound6;
+  const float* bound6;   // MODE 0
+  const float* pts;      // (P, 3), or null
   float* x4;             // (Ppad, 4)
-  float* raw;            // (Ppad, 4)
+  float* raw;            // (Ppad, 4); MODE 3: (P, 4)
   float* sig;            // (n, S1), MODE 0
   bf16* emb;             // spill blocks, MODE 2
   bf16* h[4];
@@ -446,6 +441,10 @@ __device__ __forceinline__ void point_of(const FwdIO& io, int mode, long p,
       x = ray[0] + ray[3] * z;
       y = ray[1] + ray[4] * z;
       zc = ray[2] + ray[5] * z;
+    } else if (io.pts) {
+      x = io.pts[p * 3];
+      y = io.pts[p * 3 + 1];
+      zc = io.pts[p * 3 + 2];
     } else {
       const int SP = io.S2 + io.SR;
       const long r = p / SP;
@@ -491,7 +490,7 @@ __global__ void __launch_bounds__(NTHR, 1) fwd_kernel(Weights w, FwdIO io) {
   for (int i = tid; i < 4 * HID; i += NTHR) woS[i] = __bfloat162float(w.Wo[i]);
   for (int i = tid; i < 3 * EMB; i += NTHR) BpS[i] = w.Bp[i];
   if (tid < 4) boS[tid] = w.b[4][tid];
-  if (tid < 6) b6[tid] = io.bound6[tid];
+  if (MODE == 0 && tid < 6) b6[tid] = io.bound6[tid];
   if (tid == 0) {
     for (int s = 0; s < NSTAGE; ++s) {
       mbar_init(&full[s], 1);
@@ -532,7 +531,7 @@ __global__ void __launch_bounds__(NTHR, 1) fwd_kernel(Weights w, FwdIO io) {
         point_of(io, MODE, pb + t, xo);
         *reinterpret_cast<float4*>(xs + t * 4) =
             make_float4(xo[0], xo[1], xo[2], xo[3]);
-        if (MODE > 0)
+        if (MODE == 1 || MODE == 2)
           *reinterpret_cast<float4*>(io.x4 + (pb + t) * 4) =
               make_float4(xo[0], xo[1], xo[2], xo[3]);
       }
@@ -596,7 +595,7 @@ __global__ void __launch_bounds__(NTHR, 1) fwd_kernel(Weights w, FwdIO io) {
             }
           }
         }
-        if (MODE > 0)
+        if (MODE == 1 || MODE == 2)
           io.masks[((size_t)l * io.ntiles * 2 + blk) * 128 + t] =
               make_uint4(mk[0], mk[1], mk[2], mk[3]);
         if (keep) {
@@ -618,7 +617,7 @@ __global__ void __launch_bounds__(NTHR, 1) fwd_kernel(Weights w, FwdIO io) {
                 if (p < io.P)
                   io.sig[p] = inside(xs + row * 4, b6) ? hs[4 * hf + 3] + boS[3]
                                                        : 100.f;
-              } else {
+              } else if (MODE != 3 || p < io.P) {
                 *reinterpret_cast<float4*>(io.raw + p * 4) = make_float4(
                     hs[4 * hf] + boS[0], hs[4 * hf + 1] + boS[1],
                     hs[4 * hf + 2] + boS[2], hs[4 * hf + 3] + boS[3]);
@@ -646,6 +645,16 @@ inline FwdIO pass1_io(const float* rays, const float* bound6, float* sig1,
   return io;
 }
 
+// MODE 3's points: the n rows of pts (n, 3), raw into out (n, 4) (K5)
+inline FwdIO points_io(const float* pts, float* out, long n) {
+  FwdIO io{};
+  io.pts = pts;
+  io.raw = out;
+  io.P = n;
+  io.ntiles = (n + TILE - 1) / TILE;
+  return io;
+}
+
 inline int num_sms() {
   static int n = 0;
   if (!n) {
@@ -664,520 +673,6 @@ cudaError_t launch_fwd(const Weights& w, const FwdIO& io, cudaStream_t st) {
   if (e != cudaSuccess) return e;
   const long grid = io.ntiles < num_sms() ? io.ntiles : num_sms();
   fwd_kernel<MODE><<<(int)grid, NTHR, F_SMEM, st>>>(w, io);
-  return cudaGetLastError();
-}
-
-// ---- dh chain (K1's backward over the spilled masks) -------------------
-// Per 128-point tile: the head backward as a rank-4 product in registers,
-// dh_{L-1} = (dh_L @ W_L^T) * (h_{L-1} > 0) for L = 3, 2, 1 with W_L^T
-// streamed as K-major slices (wc), demb = (dh0 @ W0p^T) * cos(x . B), then
-// per-point dx (DRAY) and, with weight gradients (PG), the bf16 spill of
-// dh0..dh3 and per-block sums of the bias, head and B gradients.
-// small per-block gradient sums, in the order of the flat gradient buffer:
-// dB (3 x 128) | db0..db3 (4 x 256) | dWo (256 x 4) | dbo (4)
-constexpr int SMALL_B = 0, SMALL_BIAS = 384, SMALL_WO = 1408, SMALL_BO = 2432;
-constexpr int SMALL = 2436;
-constexpr int CSTAGE = 3;           // chain ring stages (shared memory)
-
-struct ChainIO {
-  const float* x4;       // (Ppad, 4)
-  const float* dhead;    // (Ppad, 4)
-  const bf16* h3;        // spill blocks (PG)
-  const uint4* masks;    // from the forward
-  bf16* dh[4];           // spill blocks (PG)
-  float* dx;             // (Ppad, 3) (DRAY)
-  float* small;          // (gridDim.x, SMALL) (PG)
-  long ntiles;
-};
-
-constexpr int C_RING = 0;
-constexpr int C_A = CSTAGE * SLICE;
-constexpr int C_XS = C_A + 2 * ATILE;
-constexpr int C_GS = C_XS + TILE * 16;
-constexpr int C_PART = C_GS + TILE * 16;          // 2 x 8 warps x 256 f32
-constexpr int C_DBSUM = C_PART + 2 * 8 * HID * 4;
-constexpr int C_DBS = C_DBSUM + 4 * HID * 4;
-constexpr int C_DWO = C_DBS + 384 * 4;             // dWo (256 x 4), dbo
-constexpr int C_DBOP = C_DWO + (HID + 1) * 16;    // 4 warps x dbo
-constexpr int C_WO = C_DBOP + 64;
-constexpr int C_BP = C_WO + HID * 16;
-constexpr int C_BAR = C_BP + 3 * EMB * 4;
-constexpr int C_SMEM = C_BAR + 2 * CSTAGE * 8 + 1024;
-
-__device__ __forceinline__ bool bit(const uint4& m, int i) {
-  const uint32_t w = i < 32 ? m.x : i < 64 ? m.y : i < 96 ? m.z : m.w;
-  return (w >> (i & 31)) & 1u;
-}
-
-// One layer's cotangent (acc: masked f32, accumulator layout) -> bias sums
-// (PG, ordered over the 8 consumer warps), bf16 into A (the next product's
-// A operand) and its spill (PG). A must be free (callers synchronise).
-template <bool PG>
-__device__ __forceinline__ void chain_epilogue(
-    float (&acc)[128], unsigned char* A, float* part, float* dbsum, bf16* dst,
-    long blk, int g, int t, int wgbar) {
-  const int lane = t & 31, q = lane & 3, r0 = (t >> 5) * 16 + (lane >> 2);
-  const int ct = g * 128 + t;
-#pragma unroll
-  for (int j = 0; j < 32; ++j) {
-    if (PG) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float s = acc[4 * j + e] + acc[4 * j + 2 + e];
-        s += __shfl_xor_sync(0xffffffffu, s, 4);
-        s += __shfl_xor_sync(0xffffffffu, s, 8);
-        s += __shfl_xor_sync(0xffffffffu, s, 16);
-        if (lane < 4) part[(g * 4 + (t >> 5)) * HID + ACC_COL(j, q, e)] = s;
-      }
-    }
-    const int c = 8 * j + 2 * q;
-    *reinterpret_cast<uint32_t*>(A + sw_off(r0, c)) =
-        pack2(acc[4 * j], acc[4 * j + 1]);
-    *reinterpret_cast<uint32_t*>(A + sw_off(r0 + 8, c)) =
-        pack2(acc[4 * j + 2], acc[4 * j + 3]);
-  }
-  fence_async_smem();
-  bar_sync(wgbar, 128);
-  if (PG) {
-    if (t == 0) bulk_s2g(dst + blk * 64 * HID, A, ATILE);
-    bar_sync(3, 256);
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) s += part[i * HID + ct];
-    dbsum[ct] += s;
-  }
-}
-
-template <bool PG, bool DRAY>
-__global__ void __launch_bounds__(NTHR, 1) chain_kernel(Weights w, ChainIO io) {
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* sm = align1024(smem_raw);
-  unsigned char* ring = sm + C_RING;
-  float* xsA = reinterpret_cast<float*>(sm + C_XS);
-  float* gsA = reinterpret_cast<float*>(sm + C_GS);
-  float* part = reinterpret_cast<float*>(sm + C_PART);
-  float* dbsum = reinterpret_cast<float*>(sm + C_DBSUM);
-  float* dBs = reinterpret_cast<float*>(sm + C_DBS);
-  float* dwoS = reinterpret_cast<float*>(sm + C_DWO);
-  float* dboP = reinterpret_cast<float*>(sm + C_DBOP);
-  float* woS = reinterpret_cast<float*>(sm + C_WO);
-  float* BpS = reinterpret_cast<float*>(sm + C_BP);
-  uint64_t* full = reinterpret_cast<uint64_t*>(sm + C_BAR);
-  uint64_t* empty = full + CSTAGE;
-  const int tid = threadIdx.x;
-  for (int i = tid; i < 4 * HID; i += NTHR) {
-    woS[i] = __bfloat162float(w.Wo[i]);
-    dbsum[i] = 0.f;
-  }
-  for (int i = tid; i < 3 * EMB; i += NTHR) {
-    BpS[i] = w.Bp[i];
-    dBs[i] = 0.f;
-  }
-  for (int i = tid; i < (HID + 1) * 4; i += NTHR) dwoS[i] = 0.f;
-  if (tid == 0) {
-    for (int s = 0; s < CSTAGE; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 8);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-
-  if (tid >= 256) {
-    // producer: W3, W2, W1 as 4 slices of 32 KB, W0p as 4 of 16 KB
-    reg_dealloc<40>();
-    if (tid == 256) {
-      int it = 0;
-      const char* wc = reinterpret_cast<const char*>(w.wc);
-      for (long tile = blockIdx.x; tile < io.ntiles; tile += gridDim.x)
-        for (int s = 0; s < CHAIN_SLICES; ++s, ++it) {
-          if (s < 12)
-            ring_produce<CSTAGE>(full, empty, ring, it, wc + (size_t)s * SLICE,
-                                 SLICE);
-          else
-            ring_produce<CSTAGE>(full, empty, ring, it,
-                                 wc + 12 * (size_t)SLICE + (s - 12) * (SLICE / 2),
-                                 SLICE / 2);
-        }
-    }
-  } else {
-    reg_alloc<232>();
-    const int g = tid / 128, t = tid & 127, ct = tid;
-    const int lane = t & 31, q = lane & 3, warp = t >> 5;
-    const int r0 = warp * 16 + (lane >> 2);
-    const int wgbar = 1 + g;
-    unsigned char* A = sm + C_A + g * ATILE;
-    int it = 0;
-    for (long tile = blockIdx.x; tile < io.ntiles; tile += gridDim.x) {
-      const long p0 = tile * TILE, pb = p0 + g * 64, blk = tile * 2 + g;
-      if (PG && t == 0) bulk_wait_read();
-      bar_sync(3, 256);       // the last tile is done with every buffer
-      if (PG) {
-        uint4 hv[ATILE / 16 / 128];
-        const uint4* src = reinterpret_cast<const uint4*>(io.h3 + blk * 64 * HID);
-#pragma unroll
-        for (int i = 0; i < ATILE / 16 / 128; ++i) hv[i] = src[t + 128 * i];
-#pragma unroll
-        for (int i = 0; i < ATILE / 16 / 128; ++i)
-          reinterpret_cast<uint4*>(A)[t + 128 * i] = hv[i];
-      }
-      if (t < 64) {
-        reinterpret_cast<float4*>(xsA)[g * 64 + t] =
-            reinterpret_cast<const float4*>(io.x4)[pb + t];
-        float4 gv = reinterpret_cast<const float4*>(io.dhead)[pb + t];
-        reinterpret_cast<float4*>(gsA)[g * 64 + t] = gv;
-        if (PG) {
-          // dbo partial of the warp's 32 points (float32, tree order)
-#pragma unroll
-          for (int o = 16; o > 0; o >>= 1) {
-            gv.x += __shfl_xor_sync(0xffffffffu, gv.x, o);
-            gv.y += __shfl_xor_sync(0xffffffffu, gv.y, o);
-            gv.z += __shfl_xor_sync(0xffffffffu, gv.z, o);
-            gv.w += __shfl_xor_sync(0xffffffffu, gv.w, o);
-          }
-          if (lane == 0) reinterpret_cast<float4*>(dboP)[g * 2 + warp] = gv;
-        }
-      }
-      bar_sync(3, 256);
-      if (PG) {
-        // dWo[n][c] += h3[m][n] g[m][c] (g rounded to bf16), dbo[c] +=
-        // g[m][c] (float32): thread ct owns hidden column n = ct, rows in
-        // order
-        float4 dwo = reinterpret_cast<float4*>(dwoS)[ct];
-        for (int m = 0; m < TILE; ++m) {
-          const unsigned char* Am = sm + C_A + (m >> 6) * ATILE;
-          const float hv = __bfloat162float(
-              *reinterpret_cast<const bf16*>(Am + sw_off(m & 63, ct)));
-          const float4 gm = reinterpret_cast<const float4*>(gsA)[m];
-          dwo.x += hv * bf16r(gm.x);
-          dwo.y += hv * bf16r(gm.y);
-          dwo.z += hv * bf16r(gm.z);
-          dwo.w += hv * bf16r(gm.w);
-        }
-        reinterpret_cast<float4*>(dwoS)[ct] = dwo;
-        if (ct < 4) {
-          float dbo = 0.f;
-#pragma unroll
-          for (int i = 0; i < 4; ++i) dbo += dboP[i * 4 + ct];
-          dwoS[HID * 4 + ct] += dbo;
-        }
-        bar_sync(3, 256);     // A is overwritten below
-      }
-      // head backward: dh3 = (bf16(g) @ Wo^T) * (h3 > 0), c in order
-      float acc[128];
-      {
-        const uint4 mk = io.masks[((size_t)3 * io.ntiles * 2 + blk) * 128 + t];
-        float gr[2][4];
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            gr[hf][c] = bf16r(gsA[(g * 64 + r0 + 8 * hf) * 4 + c]);
-#pragma unroll
-        for (int j = 0; j < 32; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float4 wv = *reinterpret_cast<const float4*>(
-                woS + ACC_COL(j, q, e) * 4);
-            const float* gg = gr[e >> 1];
-            float v = 0.f;
-            v += gg[0] * wv.x;
-            v += gg[1] * wv.y;
-            v += gg[2] * wv.z;
-            v += gg[3] * wv.w;
-            acc[4 * j + e] = bit(mk, 4 * j + e) ? v : 0.f;
-          }
-      }
-      chain_epilogue<PG>(acc, A, part, dbsum + 3 * HID, io.dh[3], blk, g, t,
-                         wgbar);
-      // dh_{L-1} = dh_L @ W_L^T * (h_{L-1} > 0), L = 3, 2, 1
-#pragma unroll 1
-      for (int L = 3; L >= 1; --L) {
-        const uint4 mk =
-            io.masks[((size_t)(L - 1) * io.ntiles * 2 + blk) * 128 + t];
-        for (int s = 0; s < 4; ++s, ++it)
-          ring_consume<CSTAGE, 256>(full, empty, ring, it, A + s * CHUNK_B,
-                                    acc, s == 0);
-        ring_drain<CSTAGE>(empty, it - 1);
-        if (PG && t == 0) bulk_wait_read();
-        bar_sync(wgbar, 128);
-#pragma unroll
-        for (int i = 0; i < 128; ++i) acc[i] = bit(mk, i) ? acc[i] : 0.f;
-        chain_epilogue<PG>(acc, A, part + ((4 - L) & 1) * 8 * HID,
-                           dbsum + (L - 1) * HID, io.dh[L - 1], blk, g, t,
-                           wgbar);
-      }
-      // demb = dh0 @ W0p^T * cos(x . B)   (64 x 128 per warpgroup)
-      // (defined before the first product: the asm operands are in-out, so
-      // an undefined d would stay live across the whole tile loop)
-      float d[64];
-#pragma unroll
-      for (int i = 0; i < 64; ++i) d[i] = 0.f;
-      for (int s = 0; s < 4; ++s, ++it)
-        ring_consume<CSTAGE, 128>(full, empty, ring, it, A + s * CHUNK_B, d,
-                                  s == 0);
-      ring_drain<CSTAGE>(empty, it - 1);
-      const float* xr[2] = {xsA + (g * 64 + r0) * 4, xsA + (g * 64 + r0 + 8) * 4};
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          d[4 * j + e] *= cosf(xdotb(xr[e >> 1], BpS, ACC_COL(j, q, e)));
-      if (DRAY) {
-        // dx[m][k] = sum_l demb[m][l] Bp[k][l]: own 32 columns in order,
-        // then the quad by shfl_xor 1, 2
-        float sx[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
-#pragma unroll
-        for (int j = 0; j < 16; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-#pragma unroll
-            for (int k = 0; k < 3; ++k)
-              sx[e >> 1][k] += d[4 * j + e] * BpS[k * EMB + ACC_COL(j, q, e)];
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-          for (int k = 0; k < 3; ++k) {
-            sx[hf][k] += __shfl_xor_sync(0xffffffffu, sx[hf][k], 1);
-            sx[hf][k] += __shfl_xor_sync(0xffffffffu, sx[hf][k], 2);
-          }
-        if (q == 0)
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-            for (int k = 0; k < 3; ++k)
-              io.dx[(pb + r0 + 8 * hf) * 3 + k] = sx[hf][k];
-      }
-      if (PG) {
-        // dB[k][l] += sum_m x[m][k] demb[m][l], rows in order: demb goes
-        // to the (now free) A tiles as f32 (64 x 128 per warpgroup, column
-        // groups of 8 XOR-swizzled by row against bank conflicts)
-        if (t == 0) bulk_wait_read();
-        bar_sync(wgbar, 128);
-        float* de = reinterpret_cast<float*>(A);
-#pragma unroll
-        for (int j = 0; j < 16; ++j)
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            const int row = r0 + 8 * hf;
-            *reinterpret_cast<float2*>(de + row * EMB +
-                                       ((8 * j + 2 * q) ^ ((row & 7) << 3))) =
-                make_float2(d[4 * j + 2 * hf], d[4 * j + 2 * hf + 1]);
-          }
-        bar_sync(3, 256);
-        for (int i = ct; i < 384; i += 256) {
-          const int k = i >> 7, l = i & 127;
-          float s = 0.f;
-#pragma unroll 8
-          for (int m = 0; m < TILE; ++m) {
-            const float* dem = reinterpret_cast<const float*>(
-                sm + C_A + (m >> 6) * ATILE);
-            const int row = m & 63;
-            s += xsA[m * 4 + k] * dem[row * EMB + (l ^ ((row & 7) << 3))];
-          }
-          dBs[i] += s;
-        }
-      }
-    }
-    if (PG) {
-      if (t == 0) bulk_wait_all();
-      bar_sync(3, 256);
-      float* row = io.small + (long)blockIdx.x * SMALL;
-      for (int i = ct; i < 384; i += 256) row[SMALL_B + i] = dBs[i];
-      for (int i = ct; i < 4 * HID; i += 256) row[SMALL_BIAS + i] = dbsum[i];
-      for (int i = ct; i < (HID + 1) * 4; i += 256) row[SMALL_WO + i] = dwoS[i];
-    }
-  }
-}
-
-// ---- weight gradients: dW_l = in_l^T @ dh_l over the points ------------
-// Block (mt, split): output rows [rowoff, rowoff + 128) of layer l (mt 0:
-// layer 0; 1-2: layer 1; 3-4: layer 2; 5-6: layer 3), points of 64-point
-// blocks [split * nkb / NSPLIT_W, (split + 1) * nkb / NSPLIT_W). Both
-// operands are spill blocks, loaded whole by 1-D bulk copies (the A rows
-// as one 16 KB piece, dh as 32 KB) into a 4-stage ring and read MN-major.
-constexpr int W_STAGE = 4;
-constexpr int W_ABYTES = 2 * CHUNK_B;           // 64 points x 128 rows
-constexpr int W_STEP = W_ABYTES + ATILE;        // + 64 points x 256 columns
-constexpr int W_SMEM = W_STAGE * W_STEP + 2 * W_STAGE * 8 + 1024;
-
-struct WgradIO {
-  const bf16* in[4];     // emb, h0, h1, h2 (spill blocks)
-  const bf16* dh[4];
-  float* wpart;          // (4, NSPLIT_W, 256 * 256)
-  long nkb;              // 64-point blocks
-};
-
-__global__ void __launch_bounds__(NTHR, 1) wgrad_kernel(WgradIO io) {
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* sm = align1024(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(sm + W_STAGE * W_STEP);
-  uint64_t* empty = full + W_STAGE;
-  const int tid = threadIdx.x, mt = blockIdx.x, split = blockIdx.y;
-  const int layer = mt == 0 ? 0 : (mt + 1) / 2;
-  const int rowoff = mt == 0 ? 0 : ((mt - 1) & 1) * 128;
-  const long blockbytes = 64L * (layer == 0 ? EMB : HID) * 2;
-  const long kb0 = split * io.nkb / NSPLIT_W;
-  const long kb1 = (split + 1) * io.nkb / NSPLIT_W;
-  if (tid == 0) {
-    for (int s = 0; s < W_STAGE; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 8);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  if (tid >= 256) {
-    reg_dealloc<40>();
-    if (tid == 256) {
-      const char* a = reinterpret_cast<const char*>(io.in[layer]) + rowoff * 128;
-      const char* b = reinterpret_cast<const char*>(io.dh[layer]);
-      int it = 0;
-      for (long kb = kb0; kb < kb1; ++kb, ++it) {
-        const int st = it % W_STAGE;
-        mbar_wait(&empty[st], ((it / W_STAGE) & 1) ^ 1);
-        mbar_expect_tx(&full[st], W_STEP);
-        unsigned char* dst = sm + st * W_STEP;
-        bulk_g2s(dst, a + kb * blockbytes, W_ABYTES, &full[st], l2_normal());
-        bulk_g2s(dst + W_ABYTES, b + kb * ATILE, ATILE, &full[st], l2_normal());
-      }
-    }
-  } else {
-    reg_alloc<232>();
-    const int g = tid / 128, t = tid & 127;
-    const int lane = t & 31, q = lane & 3;
-    const int r0 = (t >> 5) * 16 + (lane >> 2);
-    float acc[128];
-#pragma unroll
-    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
-    int it = 0;
-    for (long kb = kb0; kb < kb1; ++kb, ++it) {
-      const int st = it % W_STAGE;
-      mbar_wait(&full[st], (it / W_STAGE) & 1);
-      unsigned char* sa = sm + st * W_STEP + g * CHUNK_B;
-      unsigned char* sb = sm + st * W_STEP + W_ABYTES;
-      wg_fence();
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        wgmma_n256<1, 1>(acc, desc_sw128(sa + k * 2048, CHUNK_B, 1024),
-                         desc_sw128(sb + k * 2048, CHUNK_B, 1024), 1);
-      wg_commit();
-      if (kb > kb0) {
-        wg_wait<1>();
-        if (lane == 0) mbar_arrive(&empty[(it - 1) % W_STAGE]);
-      }
-    }
-    wg_wait<0>();
-    float* out = io.wpart + ((long)layer * NSPLIT_W + split) * HID * HID;
-#pragma unroll
-    for (int j = 0; j < 32; ++j)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf)
-        *reinterpret_cast<float2*>(
-            out + (long)(rowoff + g * 64 + r0 + 8 * hf) * HID + 8 * j + 2 * q) =
-            make_float2(acc[4 * j + 2 * hf], acc[4 * j + 2 * hf + 1]);
-  }
-}
-
-// ---- workspace and launches (K1, K3, K4) ------------------------------
-struct WS {
-  float* x4;       // (Ppad, 4): x, y, z, ray depth z
-  float* raw;      // (Ppad, 4)
-  bf16* emb;       // spill blocks (Ppad x 128), weight-gradient runs only
-  bf16* h[4];      // spill blocks (Ppad x 256), weight-gradient runs only
-  uint4* masks;    // (4, Ppad / 64, 128)
-  float* dhead;    // (Ppad, 4)
-  float* gdvec;    // (n, 3)
-  float* dx;       // (Ppad, 3)
-  bf16* dh[4];     // spill blocks, weight-gradient runs only
-  float* small;    // (chain blocks, SMALL)
-  float* wpart;    // (4, NSPLIT_W, 256 * 256)
-  size_t bytes;
-  long Ppad;
-};
-
-constexpr int PAD = 1024;    // padded point count is a multiple
-
-inline size_t align256(size_t x) { return (x + 255) & ~size_t(255); }
-
-inline long chain_blocks(long ntiles) {
-  return ntiles < num_sms() ? ntiles : num_sms();
-}
-
-inline WS carve(char* base, int n, int S2, int SR, int pg) {
-  WS w{};
-  const long P = (long)n * (S2 + SR);
-  w.Ppad = (P + PAD - 1) / PAD * PAD;
-  size_t off = 0;
-  auto take = [&](size_t bytes) {
-    char* p = base ? base + off : nullptr;
-    off = align256(off + bytes);
-    return p;
-  };
-  w.x4 = reinterpret_cast<float*>(take(w.Ppad * 16));
-  w.raw = reinterpret_cast<float*>(take(w.Ppad * 16));
-  w.masks = reinterpret_cast<uint4*>(take(w.Ppad * 4 * 32));
-  w.dhead = reinterpret_cast<float*>(take(w.Ppad * 16));
-  w.gdvec = reinterpret_cast<float*>(take((size_t)n * 12));
-  w.dx = reinterpret_cast<float*>(take(w.Ppad * 12));
-  if (pg) {
-    w.emb = reinterpret_cast<bf16*>(take(w.Ppad * EMB * 2));
-    for (int i = 0; i < 4; ++i)
-      w.h[i] = reinterpret_cast<bf16*>(take(w.Ppad * HID * 2));
-    for (int i = 0; i < 4; ++i)
-      w.dh[i] = reinterpret_cast<bf16*>(take(w.Ppad * HID * 2));
-    w.small = reinterpret_cast<float*>(
-        take((size_t)chain_blocks(w.Ppad / TILE) * SMALL * 4));
-    w.wpart = reinterpret_cast<float*>(
-        take((size_t)4 * NSPLIT_W * HID * HID * 4));
-  }
-  w.bytes = off;
-  return w;
-}
-
-// MODE 1/2's points: the z2 (and SR regulation) points of the n rays,
-// into the workspace's x4, raw, masks and (MODE 2) spill blocks
-inline FwdIO pass2_io(const WS& ws, const float* rays, const float* z2,
-                      const float* treg, const float* bound6, int n, int S2,
-                      int SR) {
-  FwdIO io{};
-  io.rays = rays;
-  io.z2 = z2;
-  io.treg = treg;
-  io.bound6 = bound6;
-  io.x4 = ws.x4;
-  io.raw = ws.raw;
-  io.emb = ws.emb;
-  for (int i = 0; i < 4; ++i) io.h[i] = ws.h[i];
-  io.masks = ws.masks;
-  io.P = (long)n * (S2 + SR);
-  io.ntiles = ws.Ppad / TILE;
-  io.S2 = S2;
-  io.SR = SR;
-  return io;
-}
-
-template <bool PG, bool DRAY>
-cudaError_t launch_chain(const Weights& w, const WS& ws, cudaStream_t st) {
-  ChainIO io{ws.x4, ws.dhead, ws.h[3], ws.masks,
-             {ws.dh[0], ws.dh[1], ws.dh[2], ws.dh[3]}, ws.dx, ws.small,
-             ws.Ppad / TILE};
-  cudaError_t e = cudaFuncSetAttribute(chain_kernel<PG, DRAY>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       C_SMEM);
-  if (e != cudaSuccess) return e;
-  chain_kernel<PG, DRAY><<<(int)chain_blocks(io.ntiles), NTHR, C_SMEM, st>>>(
-      w, io);
-  return cudaGetLastError();
-}
-
-inline cudaError_t launch_wgrad(const WS& ws, cudaStream_t st) {
-  WgradIO io{{ws.emb, ws.h[0], ws.h[1], ws.h[2]},
-             {ws.dh[0], ws.dh[1], ws.dh[2], ws.dh[3]}, ws.wpart, ws.Ppad / 64};
-  cudaError_t e = cudaFuncSetAttribute(
-      wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
-  if (e != cudaSuccess) return e;
-  wgrad_kernel<<<dim3(WG_MTILES, NSPLIT_W), NTHR, W_SMEM, st>>>(io);
   return cudaGetLastError();
 }
 

@@ -216,7 +216,7 @@ cudaError_t forward(const hop::Weights& w, const float* rays,
                                                  SI);
   CK(cudaGetLastError());
   CK(hop::launch_fwd<1>(
-      w, hop::pass2_io(fw.ws, rays, z2, treg, bound6, n, S2, SR), stream));
+      w, hop::pass2_io(fw.ws, rays, z2, treg, n, S2, SR), stream));
   mk_composite<<<(n + 127) / 128, 128, 0, stream>>>(
       rays, z2, fw.ws.x4, fw.ws.raw, bound6, outv, sigr, n, S2, SR);
   return cudaGetLastError();
@@ -227,16 +227,16 @@ cudaError_t backward(const hop::Weights& w, const float* rays,
                      const float* gsr, const float* bound6,
                      const hop::WS& ws, float* dray, float* grads, int n,
                      int S2, int SR, int param_grads, cudaStream_t stream) {
+  const hop::FwdIO io = hop::pass2_io(ws, rays, z2, treg, n, S2, SR);
   return vg_sequence(
-      w, ws, hop::pass2_io(ws, rays, z2, treg, bound6, n, S2, SR), n,
-      param_grads, 1, dray, grads,
+      w, ws, io, param_grads, 1, grads,
       [&] {
         mk_composite_bwd<<<(n + 127) / 128, 128, 0, stream>>>(
             rays, z2, ws.x4, ws.raw, bound6, gsm, gsr, ws.dhead, ws.gdvec, n,
             S2, SR);
         return cudaGetLastError();
       },
-      stream);
+      [&] { return ray_sums(ws, io, n, 1, dray, stream); }, stream);
 }
 
 bool bad_sizes(int n, int S1, int SI, int SR) {

@@ -1,10 +1,9 @@
 // Ray-level device code shared by the fused value-and-grad kernel
 // (fused_vg.cu, K1), the render megakernel pair (megakernel.cu, K3/K4) and
-// the decoder backward (fused_mlp.cu, K6, through vg_shared.cuh): the
-// per-ray composite and its hand-written VJP, the per-ray d(loss)/d(o, d)
-// sums, the ordered reduce of split-K partials and the flat gradient
-// layout. No decoder tile here: K1-K4 run the decoder on hopper_mlp.cuh,
-// K5/K6 on mlp_tile.cuh / vg_shared.cuh.
+// the decoder pair (fused_mlp.cu, K5/K6): the per-ray composite and its
+// hand-written VJP, the per-ray d(loss)/d(o, d) sums, the ordered reduce
+// of split-K partials and the flat gradient layout. No decoder tile here:
+// every kernel runs the decoder on hopper_mlp.cuh / hopper_bwd.cuh.
 //
 // Point layout: ray r owns points r * (S2 + SR) + s, s < S2 at z2[r, s],
 // then SR regulation points; x4 (P, 4) holds x, y, z and the ray depth z,

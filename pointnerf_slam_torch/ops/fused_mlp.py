@@ -8,15 +8,17 @@ decoder is evaluated outside K1-K4: the mesher's grid and vertex colours,
 and the plain renderer of the tracker and mapper (`rendering.megakernel:
 off`).
 
-CUDA tensors run the hand-written kernels of csrc/fused_mlp.cu: the
-forward launches K5 (replaces the JAX reference's ops/fused_mlp.py:104
-`_fwd_kernel`), the backward K6 (:116 `_bwd_kernel`), which recomputes
-the forward tile by tile and returns dx and every weight gradient, summed
-over tiles in a fixed order. K6 skips the weight gradients when no
-parameter needs one (the tracker) and dx when pts need none (the mapper
-without bundle adjustment). CPU tensors take the plain versions
-`mlp_forward_reference` / `mlp_backward_reference`; anything else raises,
-and there is no fallback from a failed build or launch.
+CUDA tensors run the hand-written kernels of csrc/fused_mlp.cu, on the
+Hopper tile that K1-K4 run: the forward launches K5 (replaces the JAX
+reference's ops/fused_mlp.py:104 `_fwd_kernel`), which streams the
+forward weight image wf; the backward K6 (:116 `_bwd_kernel`), which
+streams wf and the chain's image wc, recomputes the forward and returns
+dx and every weight gradient, summed over tiles in a fixed order. K6
+skips the weight gradients when no parameter needs one (the tracker) and
+dx when pts need none (the mapper without bundle adjustment). CPU
+tensors take the plain versions `mlp_forward_reference` /
+`mlp_backward_reference`; anything else raises, and there is no fallback
+from a failed build or launch.
 
 Numerics, those of the TPU kernels: x . B, sin and cos in float32 (x . B
 as the FMA chain of models.embeddings.fourier_project); bf16-rounded
@@ -37,8 +39,8 @@ import torch
 
 from ..models.embeddings import fourier_project
 from . import build
-from .fused_vg import (GRAD_LEN, PARAM_NAMES, _check, _path, _stream,
-                       _unpack_grads, launches, pack_weights)
+from .fused_vg import (GRAD_LEN, PARAM_NAMES, PackedWeights, _check, _path,
+                       _stream, _unpack_grads, launches, pack_weights)
 
 HID = 256
 
@@ -110,35 +112,36 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def k5_forward(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """Launch K5 on CUDA tensors: (N, 3) -> (N, 4)."""
+def k5_launch(lib, pw: PackedWeights, x: torch.Tensor):
+    """K5's C call `mlp_fwd` of `lib` (csrc/fused_mlp.cu, or another build
+    of it) on buffers prepared once: returns (launch, out (N, 4)); each
+    launch() runs the kernel into out and raises on a CUDA error. The
+    kernel streams the forward weight image alone (wf)."""
     n = x.shape[0]
+    _check(x, (n, 3), torch.float32, "pts")
     out = torch.empty(n, 4, device=x.device)
-    if n == 0:
-        return out
-    xc = x.detach().float().contiguous()
-    _check(xc, (n, 3), torch.float32, "pts")
-    pw = pack_weights(params)
-    lib = build.load("fused_mlp")
     lib.mlp_fwd.restype = ctypes.c_int
-    rc = lib.mlp_fwd(pw.pointers(), _ptr(xc), _ptr(out), ctypes.c_longlong(n),
-                     _stream(xc))
-    build.check(lib, rc, "mlp_fwd")
-    launches["fused_mlp_fwd"] += 1
-    return out
+    args = (pw.with_images(chain=False).pointers(), _ptr(x), _ptr(out),
+            ctypes.c_longlong(n), _stream(x))
+
+    def launch():
+        build.check(lib, lib.mlp_fwd(*args), "mlp_fwd")
+        return out
+    # the launch keeps every buffer it points at alive
+    launch.keep = (pw, x)
+    return launch, out
 
 
-def k6_backward(params: dict, x: torch.Tensor, g: torch.Tensor,
-                param_grads: bool, x_grad: bool):
-    """Launch K6 on CUDA tensors with the cotangent g (N, 4). Returns
-    (dx (N, 3) or None, {name: grad} or None)."""
+def k6_launch(lib, pw: PackedWeights, x: torch.Tensor, g: torch.Tensor,
+              param_grads: bool, x_grad: bool):
+    """K6's C call `mlp_bwd` of `lib` on buffers prepared once: returns
+    (launch, (dx (N, 3) or a 1-element placeholder, grads (GRAD_LEN,) or
+    a placeholder)); each launch() runs the kernel into them and raises on
+    a CUDA error. The kernel streams both weight images (wf, wc) and sizes
+    its workspace by the library's answer for (N, weight gradients)."""
     n, dev = x.shape[0], x.device
-    xc = x.detach().float().contiguous()
-    gc = g.detach().float().contiguous()
-    _check(xc, (n, 3), torch.float32, "pts")
-    _check(gc, (n, 4), torch.float32, "cotangent")
-    pw = pack_weights(params)
-    lib = build.load("fused_mlp")
+    _check(x, (n, 3), torch.float32, "pts")
+    _check(g, (n, 4), torch.float32, "cotangent")
     lib.mlp_bwd_workspace_bytes.restype = ctypes.c_longlong
     lib.mlp_bwd.restype = ctypes.c_int
     pg = int(bool(param_grads))
@@ -148,14 +151,41 @@ def k6_backward(params: dict, x: torch.Tensor, g: torch.Tensor,
     dx = torch.empty(n, 3, device=dev) if x_grad else torch.empty(1,
                                                                    device=dev)
     grads = torch.empty(GRAD_LEN if pg else 1, device=dev)
-    rc = lib.mlp_bwd(pw.pointers(), _ptr(xc), _ptr(gc), _ptr(ws), _ptr(dx),
-                     _ptr(grads), ctypes.c_longlong(n), ctypes.c_int(pg),
-                     ctypes.c_int(int(bool(x_grad))), _stream(xc))
-    build.check(lib, rc, "mlp_bwd")
+    args = (pw.with_images(chain=True).pointers(), _ptr(x), _ptr(g),
+            _ptr(ws), _ptr(dx), _ptr(grads), ctypes.c_longlong(n),
+            ctypes.c_int(pg), ctypes.c_int(int(bool(x_grad))), _stream(x))
+
+    def launch():
+        build.check(lib, lib.mlp_bwd(*args), "mlp_bwd")
+        return dx, grads
+    launch.keep = (pw, x, g, ws)
+    return launch, (dx, grads)
+
+
+def k5_forward(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Launch K5 on CUDA tensors: (N, 3) -> (N, 4)."""
+    if x.shape[0] == 0:
+        return torch.empty(0, 4, device=x.device)
+    launch, out = k5_launch(build.load("fused_mlp"), pack_weights(params),
+                            x.detach().float().contiguous())
+    launch()
+    launches["fused_mlp_fwd"] += 1
+    return out
+
+
+def k6_backward(params: dict, x: torch.Tensor, g: torch.Tensor,
+                param_grads: bool, x_grad: bool):
+    """Launch K6 on CUDA tensors with the cotangent g (N, 4). Returns
+    (dx (N, 3) or None, {name: grad} or None)."""
+    launch, (dx, grads) = k6_launch(
+        build.load("fused_mlp"), pack_weights(params),
+        x.detach().float().contiguous(), g.detach().float().contiguous(),
+        param_grads, x_grad)
+    launch()
     launches["fused_mlp_bwd"] += 1
     emb = params["embedder.B"].shape[1]
     return (dx if x_grad else None,
-            _unpack_grads(grads, emb) if pg else None)
+            _unpack_grads(grads, emb) if param_grads else None)
 
 
 class _FusedMLPFn(torch.autograd.Function):

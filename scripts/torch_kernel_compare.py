@@ -1,23 +1,27 @@
 #!/usr/bin/env python3
-"""K1 (fused_vg), K2 (p1_sigma), K3/K4 (megakernel) and the engine
-iterations of this tree against another version of the port, timed in
-turns on one card.
+"""K1 (fused_vg), K2 (p1_sigma), K3/K4 (megakernel), K5/K6 (fused_mlp)
+and the engine iterations of this tree against another version of the
+port, timed in turns on one card.
 
   python3 scripts/torch_kernel_compare.py --other DIR [--reps 10]
       [--engine-reps 3]
+
+--engine-reps 0 leaves the engine iterations out.
 
 DIR is the root of another checkout of the repository (e.g. `git archive
 <commit> | tar -x -C DIR` under a git-ignored directory).
 
 Kernels: the other version's `pointnerf_slam_torch/ops/csrc/fused_vg.cu`,
-`p1_sigma.cu` and `megakernel.cu` (with the headers they include) are
-built with this tree's nvcc flags (`ops/build.py`) into
+`p1_sigma.cu`, `megakernel.cu` and `fused_mlp.cu` (with the headers they
+include) are built with this tree's nvcc flags (`ops/build.py`) into
 `build/torch_kernels_other/` and called through this tree's launch
 helpers (`ops/fused_vg.py` `vg_launch`, `p1_launch`, `ops/megakernel.py`
-`k3_launch`, `k4_launch`), so they must keep the C interface of
-`fused_vg` / `fused_vg_workspace_bytes` / `p1_sigma` / `mk_forward` /
-`mk_backward` and their workspace sizes (a version that reads fewer
-weight pointers ignores the trailing ones). At the main path's shapes
+`k3_launch`, `k4_launch`, `ops/fused_mlp.py` `k5_launch`, `k6_launch`),
+so they must keep the C interface of `fused_vg` /
+`fused_vg_workspace_bytes` / `p1_sigma` / `mk_forward` / `mk_backward` /
+`mlp_fwd` / `mlp_bwd` / `mlp_bwd_workspace_bytes` and their workspace
+sizes (a version that reads fewer weight pointers, as the retired WMMA
+K5/K6, ignores the trailing ones). At the main path's shapes
 (random decoder, seed 0, rays of six cameras at 680x1200 as in
 chip_smoke.py): mapper 4998 rays x (44 + 32) points, colour, w_beyond 1,
 without and with ray gradients; tracker 5000 x 44, ray gradients only;
@@ -25,16 +29,25 @@ p1 4998 x 32; K3 and K4 at the tracker shape (5000 rays, 32 + 12, no
 regulation, K4 without weight gradients, as the handle_dynamic tracker
 launches them) and the mapper shape (4998 rays, 32 + 12 + 32 regulation
 samples, K4 with weight gradients; K4 of both versions at this tree's K3
-samples z2 and one set of random cotangents). Each launch is timed alone
-(buffers prepared once, so the wrapper's host work is not in it) with CUDA
-events, median of --reps calls, in the order other, this, this, other.
+samples z2 and one set of random cotangents); K5 at a 500,000-point
+chunk of room_bench's mesh grid and at the mapper's plain-path points
+(4998 rays x (32 + 44 + 32) = 539,784), K6 at the 379,848 its loss
+reaches with a random cotangent, with weight gradients only, dx only and
+both. Each launch is timed alone (its buffers prepared before each of
+the four timings and freed after it, so the wrapper's host work is not in
+it and both versions read the same addresses: the caching allocator hands
+back the blocks just freed) with CUDA events, median of --reps calls, in
+the order other, this, this, other.
 
 Engine: in a process of its own per tree, in the order other, this, this,
 other, with the tree's own modules: `chip_smoke.bench_engine` (tracker 50
 iterations at K=5, fused-outer mapper 3 x 100 at K=4), the bench tracker
-with tracking.handle_dynamic on (50 iterations of K3/K4) and the mapper's
+with tracking.handle_dynamic on (50 iterations of K3/K4), the mapper's
 two-kernel branch (40 + 24 samples, w_beyond_loss 0, 20 iterations of
-K3/K4 with weight gradients), each as host wall time with a sync at the
+K3/K4 with weight gradients) and the bench workload on the plain branch
+(`rendering.megakernel: off`) with MLPConfig(fused=True) (K5/K6: 2 / 1
+launches per tracker iteration, 3 / 2 per mapper iteration), each as host
+wall time with a sync at the
 end, as chip_smoke's engine phases read them; each process warms up once,
 runs --engine-reps times and then the bench workload once more under
 cProfile, whose top host functions (by own time) it prints.
@@ -63,7 +76,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-KERNELS = ("fused_vg", "p1_sigma", "megakernel")
+KERNELS = ("fused_vg", "p1_sigma", "megakernel", "fused_mlp")
 
 
 def build_other(src_dir: str) -> dict:
@@ -92,11 +105,13 @@ def build_other(src_dir: str) -> dict:
 
 
 def compare_kernels(torch, other_libs: dict, reps: int) -> list:
-    from chip_smoke import VG_VARIANTS, rays_batch, timed
+    from chip_smoke import (VG_VARIANTS, mesh_chunk, plain_mapper_points,
+                            rays_batch, timed)
     from pointnerf_slam_torch.models.decoders import IMAPDecoder, MLPConfig
     from pointnerf_slam_torch.ops import build
     from pointnerf_slam_torch.ops import fused_vg as F
     from pointnerf_slam_torch.render.renderer import RenderConfig
+    from pointnerf_slam_torch.ops import fused_mlp as M
     from pointnerf_slam_torch.ops import megakernel as MK
     build.build_all(KERNELS)
     libs = {"this": {k: build.load(k) for k in KERNELS},
@@ -108,13 +123,13 @@ def compare_kernels(torch, other_libs: dict, reps: int) -> list:
     bound = torch.tensor([[-3.5, 3.5]] * 3, device=dev)
     cams = torch.tensor([[1.0, 0, 0, 0, 0, 0, 2.5]] * 6, device=dev)
     cams[:, 4] = torch.linspace(-0.3, 0.3, 6, device=dev)
+    # (label, library, make(lib) -> a launch on buffers of its own)
     cases = []
     ro, rd, gt_d, _ = rays_batch(torch, gen, 4998, cams)
     rays = F._pack_rays(ro, rd, gt_d, bound)
     pw = F.pack_weights(params)
-    cases.append(("p1_sigma (4998 x 32)", {
-        v: F.p1_launch(libs[v]["p1_sigma"], pw, rays, bound, 32)[0]
-        for v in libs}))
+    cases.append(("p1_sigma (4998 x 32)", "p1_sigma",
+                  lambda lib: F.p1_launch(lib, pw, rays, bound, 32)[0]))
     for name, mode, kw, _ in VG_VARIANTS:
         n = 4998 if mode == "mapper" else 5000
         ro, rd, gt_d, gt_c = rays_batch(torch, gen, n, cams)
@@ -126,30 +141,47 @@ def compare_kernels(torch, other_libs: dict, reps: int) -> list:
         label = (f"{name} ({n} x {44 + (32 if spec.with_reg else 0)}, ray "
                  f"grads {spec.with_ray_grads}, weight grads "
                  f"{spec.param_grads})")
-        cases.append((label, {v: F.vg_launch(
-            libs[v]["fused_vg"], spec, params, ro, rd, gt_d, gt_c, ray_w,
-            t_reg, z2, bound)[0] for v in libs}))
+        args = (spec, params, ro, rd, gt_d, gt_c, ray_w, t_reg, z2, bound)
+        cases.append((label, "fused_vg",
+                      lambda lib, a=args: F.vg_launch(lib, *a)[0]))
     for n, with_reg, pg in ((5000, False, False), (4998, True, True)):
         ro, rd, gt_d, _ = rays_batch(torch, gen, n, cams)
         t_reg = torch.rand(n, 32, generator=gen, device=dev)
         shape = f"{n} x (32 + 12{' + 32' if with_reg else ''})"
-        k3 = {v: MK.k3_launch(libs[v]["megakernel"], pw, ro, rd, gt_d, t_reg,
-                              bound, 32, 12, with_reg) for v in libs}
-        cases.append((f"K3 ({shape})", {v: k3[v][0] for v in libs}))
-        k3["this"][0]()
-        _, _, z2, (rays8, treg, b6, SRk), _ = k3["this"][1]
+        args = (pw, ro, rd, gt_d, t_reg, bound, 32, 12, with_reg)
+        cases.append((f"K3 ({shape})", "megakernel",
+                      lambda lib, a=args: MK.k3_launch(lib, *a)[0]))
+        launch, (_, _, z2, (rays8, treg, b6, SRk), _) = MK.k3_launch(
+            libs["this"]["megakernel"], *args)
+        launch()
         cot = (torch.randn(n, generator=gen, device=dev),
                torch.randn(n, generator=gen, device=dev),
                torch.randn(n, 3, generator=gen, device=dev),
                torch.randn(n, 32, generator=gen, device=dev))
-        cases.append((f"K4 ({shape}, weight grads {pg})", {
-            v: MK.k4_launch(libs[v]["megakernel"], pw, rays8, treg, z2, b6,
-                            *cot, 32, SRk, pg)[0] for v in libs}))
+        args = (pw, rays8, treg, z2, b6, *cot, 32, SRk, pg)
+        cases.append((f"K4 ({shape}, weight grads {pg})", "megakernel",
+                      lambda lib, a=args: MK.k4_launch(lib, *a)[0]))
+    ro, rd, gt_d, gt_c = rays_batch(torch, gen, 4998, cams)
+    x_all, x_live, _ = plain_mapper_points(
+        torch, params, ro, rd, gt_d, gt_c, torch.ones(4998, device=dev),
+        torch.rand(4998, 32, generator=gen, device=dev), bound)
+    for label, x in (("K5 (500,000 mesh-grid points)",
+                      mesh_chunk(torch, dev)),
+                     (f"K5 ({x_all.shape[0]} mapper plain-path points)",
+                      x_all)):
+        cases.append((label, "fused_mlp",
+                      lambda lib, x=x: M.k5_launch(lib, pw, x)[0]))
+    g = torch.randn(x_live.shape[0], 4, generator=gen, device=dev)
+    for pg, xg, what in ((True, False, "weight grads only"),
+                         (False, True, "dx only"), (True, True, "both")):
+        cases.append((f"K6 ({x_live.shape[0]} points, {what})", "fused_mlp",
+                      lambda lib, f=(pg, xg): M.k6_launch(lib, pw, x_live, g,
+                                                          *f)[0]))
     out = []
-    for label, fns in cases:
+    for label, name, make in cases:
         ms = {}
         for v in ("other", "this", "this", "other"):
-            ms.setdefault(v, []).append(timed(fns[v], reps))
+            ms.setdefault(v, []).append(timed(make(libs[v][name]), reps))
         o, t = min(ms["other"]), min(ms["this"])
         print(f"{label}: other {ms['other'][0]:.4f} / {ms['other'][1]:.4f} "
               f"ms, this {ms['this'][0]:.4f} / {ms['this'][1]:.4f} ms; "
@@ -265,6 +297,15 @@ def small_n_grads(torch, other_libs: dict) -> list:
     return out
 
 
+def plain_ms(torch, S, iters=(50, 100)) -> tuple:
+    """ms per tracker and mapper iteration of the tree's plain branch with
+    the fused decoder (K5/K6), through its chip_smoke.bench_engine."""
+    from pointnerf_slam_torch.models.decoders import IMAPDecoder, MLPConfig
+    mcfg = MLPConfig(fused=True)
+    dec = IMAPDecoder(mcfg, torch.Generator().manual_seed(0)).to("cuda")
+    return S.bench_engine(torch, dec, *iters, mcfg, "off")[:2]
+
+
 def engine_child(root: str, reps: int) -> int:
     """One tree's engine iterations: warm-up, `reps` timed runs, one run
     of the bench workload under cProfile. Prints the profile, then a JSON
@@ -281,8 +322,9 @@ def engine_child(root: str, reps: int) -> int:
         "cuda")
     S.bench_engine(torch, dec, 5, 4)
     two_kernel_ms(torch, S)
+    plain_ms(torch, S, (5, 4))
     runs = [S.bench_engine(torch, dec)[:2] + two_kernel_ms(torch, S)
-            for _ in range(reps)]
+            + plain_ms(torch, S) for _ in range(reps)]
     prof = cProfile.Profile()
     prof.enable()
     S.bench_engine(torch, dec)
@@ -293,7 +335,9 @@ def engine_child(root: str, reps: int) -> int:
     print(json.dumps({"root": root, "tracker_ms": [r[0] for r in runs],
                       "mapper_ms": [r[1] for r in runs],
                       "dynamic_tracker_ms": [r[2] for r in runs],
-                      "mapper_two_kernel_ms": [r[3] for r in runs]}))
+                      "mapper_two_kernel_ms": [r[3] for r in runs],
+                      "plain_tracker_ms": [r[4] for r in runs],
+                      "plain_mapper_ms": [r[5] for r in runs]}))
     return 0
 
 
@@ -313,13 +357,16 @@ def compare_engine(other_root: str, reps: int) -> list:
         print(f"engine ({v}): tracker {r['tracker_ms']} ms/iter, mapper "
               f"{r['mapper_ms']} ms/iter, handle_dynamic tracker "
               f"{r['dynamic_tracker_ms']} ms/iter, mapper two-kernel "
-              f"{r['mapper_two_kernel_ms']} ms/iter; host profile "
+              f"{r['mapper_two_kernel_ms']} ms/iter, plain branch on K5/K6 "
+              f"tracker {r['plain_tracker_ms']} / mapper "
+              f"{r['plain_mapper_ms']} ms/iter; host profile "
               f"(cProfile, one run):", flush=True)
         print("\n".join(lines[:-1]), flush=True)
         ms.setdefault(v, []).append(r)
     out = []
     for key in ("tracker_ms", "mapper_ms", "dynamic_tracker_ms",
-                "mapper_two_kernel_ms"):
+                "mapper_two_kernel_ms", "plain_tracker_ms",
+                "plain_mapper_ms"):
         o = [x for r in ms["other"] for x in r[key]]
         t = [x for r in ms["this"] for x in r[key]]
         print(f"engine {key[:-3]}: other {sorted(o)} ms/iter, this "
@@ -357,7 +404,8 @@ def main() -> int:
                                           "ops", "csrc"))
     cases = compare_kernels(torch, other_libs, args.reps)
     small = small_n_grads(torch, other_libs)
-    cases += compare_engine(other, args.engine_reps)
+    if args.engine_reps > 0:
+        cases += compare_engine(other, args.engine_reps)
     print(json.dumps({"card": smi, "reps": args.reps, "cases": cases,
                       "small_batches": small}))
     return 0

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Per-CUDA-kernel time of one fused value-and-grad iteration of the port,
-and of one render megakernel pair (K3 forward, K4 backward).
+of one render megakernel pair (K3 forward, K4 backward) and of the
+decoder pair (K5 forward, K6 backward).
 
   python3 scripts/torch_kernel_profile.py [--reps 20]
 
@@ -8,7 +9,10 @@ At the main path's shapes (mapper: 4998 rays x (44 + 32) points, colour,
 w_beyond 1, no ray gradients; tracker: 5000 rays x 44 points, ray
 gradients only; p1: 4998 rays x 32 points; K3/K4: the handle_dynamic
 tracker's 5000 rays x (32 + 12), K4 without weight gradients, and the
-mapper shape 4998 x (32 + 12 + 32) with them) it runs each call under
+mapper shape 4998 x (32 + 12 + 32) with them; K5 at a 500,000-point
+chunk of room_bench's mesh grid, K6 at the 379,848 points the plain-path
+mapper's loss reaches, with weight gradients only, dx only and both) it
+runs each call under
 torch.profiler and prints the CUDA time per kernel name (ms per call,
 averaged over --reps calls) and the device-busy share of the window.
 Needs one NVIDIA card; prints the card's name and power limit first.
@@ -22,7 +26,10 @@ weight-gradient sums and dh spill, DRAY: per-point dx),
 `hop::wgrad_kernel` (weight-gradient GEMM), `reduce_rows` and `vg_dray`.
 K3 runs `hop::fwd_kernel<0>`, `mk_middle`, `hop::fwd_kernel<1>` and
 `mk_composite`; K4 K1's sequence with `mk_composite_bwd` in place of
-`vg_composite`.
+`vg_composite`. K5 is `hop::fwd_kernel<3>` (csrc/fused_mlp.cu); K6 the
+same sequence with a copy of the cotangent in place of the composite
+(`fwd_kernel<2|1>`, `chain_kernel<PG, DX>`, `wgrad_kernel`, `reduce_rows`,
+then a copy of dx).
 """
 
 from __future__ import annotations
@@ -118,6 +125,19 @@ def main() -> int:
             pw, ro, rd, gt_d, t_reg, bound, 32, 12, with_reg))
         show(f"K4 ({shape}, weight grads {pg})", lambda: MK.k4_backward(
             pw, rays8, treg, out[4], b6, *cot, 32, SRk, pg))
+    from chip_smoke import mesh_chunk, plain_mapper_points
+    from pointnerf_slam_torch.ops import fused_mlp as M
+    params = {k: v.detach() for k, v in F.params_of(dec).items()}
+    grid = mesh_chunk(torch, dev)
+    show("K5 (500,000 mesh-grid points)", lambda: M.k5_forward(params, grid))
+    ro, rd, gt_d, gt_c = rays_batch(torch, gen, 4998, cams)
+    _, x, _ = plain_mapper_points(
+        torch, params, ro, rd, gt_d, gt_c, torch.ones(4998, device=dev),
+        torch.rand(4998, 32, generator=gen, device=dev), bound)
+    g = torch.randn(x.shape[0], 4, generator=gen, device=dev)
+    for pg, xg in ((True, False), (False, True), (True, True)):
+        show(f"K6 ({x.shape[0]} points, weight grads {pg}, dx {xg})",
+             lambda: M.k6_backward(params, x, g, pg, xg))
     return 0
 
 

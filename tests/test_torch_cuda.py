@@ -16,9 +16,11 @@ sigma within 2e-2 * max|sigma| and within 1e-3 * (1 + |sigma|) on
 >= 95%. K5/K6 (`check_mlp`): the decoder's output within 1e-3 (1 + |raw|)
 on >= 98% of values and 2e-2 max|raw| on all; dx and every parameter
 gradient by cosine >= 0.9999 and norm ratio within 1e-3. K1, K2 and the
-render pair K3/K4 also at ragged sizes, two K1 launches and two K3/K4
-launches bit for bit, K3's pass-1 sigma bit for bit K2's, and one wgmma
-product on the kernels' shared-memory images (`hopper_mma_probe`)."""
+render pair K3/K4 and the decoder pair K5/K6 also at ragged sizes (K5/K6
+with canaries past the last row), two launches of K1, of K3/K4 and of
+K5/K6 bit for bit, K3's pass-1 sigma bit for bit K2's, K5's raw bit for
+bit K1's forward raw on K1's points, and one wgmma product on the
+kernels' shared-memory images (`hopper_mma_probe`)."""
 
 import numpy as np
 import pytest
@@ -179,7 +181,7 @@ def test_cuda_megakernel_tracker_shape(cuda, mapped):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 63, 64, 65, 700, 1025])
 def test_cuda_fused_mlp_tail_tiles(cuda, n):
-    """K5/K6 at the tile edges (64-point tiles; K6 pads to 1024 points)."""
+    """K5/K6 at the tile edges (128-point tiles; K6 pads to 1024 points)."""
     dec, _, _ = setup(cuda)
     gen = torch.Generator(device=cuda).manual_seed(n)
     x = torch.rand(n, 3, generator=gen, device=cuda) * 4 - 2
@@ -189,6 +191,119 @@ def test_cuda_fused_mlp_tail_tiles(cuda, n):
                                      F.params_of(dec).items()}, x, g)
     assert F.launches["fused_mlp_fwd"] == before[0] + 1
     assert F.launches["fused_mlp_bwd"] == before[1] + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 127, 128, 129, 131073])
+def test_cuda_fused_mlp_ragged_canaries(cuda, n):
+    """K5/K6 at ragged sizes against the 128-point tiles and K6's padding
+    to 1024 points: check_mlp on inputs whose rows past n are NaN (a read
+    past row n - 1 would poison K6's weight gradients through the
+    padding's zero cotangents), then direct launches into buffers with
+    canary values past row n of K5's raw and K6's dx, which must stay
+    untouched; those launches equal the wrappers' bit for bit."""
+    import ctypes
+    from pointnerf_slam_torch.ops import build
+    from pointnerf_slam_torch.ops import fused_mlp as M
+    dec, _, _ = setup(cuda)
+    params = {k: v.detach() for k, v in F.params_of(dec).items()}
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    pad = 300
+    xb = torch.full((n + pad, 3), float("nan"), device=cuda)
+    gb = torch.full((n + pad, 4), float("nan"), device=cuda)
+    xb[:n] = torch.rand(n, 3, generator=gen, device=cuda) * 4 - 2
+    gb[:n] = torch.randn(n, 4, generator=gen, device=cuda)
+    x, g = xb[:n], gb[:n]
+    S.check_mlp(torch, f"ragged {n}", params, x, g)
+    lib = build.load("fused_mlp")
+    lib.mlp_fwd.restype = lib.mlp_bwd.restype = ctypes.c_int
+    lib.mlp_bwd_workspace_bytes.restype = ctypes.c_longlong
+    pw = F.pack_weights(params).with_images(chain=True)
+    out = torch.full((n + pad, 4), 7.25, device=cuda)
+    dx = torch.full((n + pad, 3), -3.5, device=cuda)
+    grads = torch.empty(F.GRAD_LEN, device=cuda)
+    ws = torch.empty(int(lib.mlp_bwd_workspace_bytes(ctypes.c_longlong(n),
+                                                     ctypes.c_int(1))),
+                     dtype=torch.uint8, device=cuda)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    build.check(lib, lib.mlp_fwd(pw.pointers(), ptr(x), ptr(out),
+                                 ctypes.c_longlong(n), F._stream(x)),
+                "mlp_fwd")
+    build.check(lib, lib.mlp_bwd(pw.pointers(), ptr(x), ptr(g), ptr(ws),
+                                 ptr(dx), ptr(grads), ctypes.c_longlong(n),
+                                 ctypes.c_int(1), ctypes.c_int(1),
+                                 F._stream(x)), "mlp_bwd")
+    torch.cuda.synchronize()
+    assert bool((out[n:] == 7.25).all()) and bool((dx[n:] == -3.5).all())
+    assert torch.equal(out[:n], M.k5_forward(params, x))
+    dx_w, g_w = M.k6_backward(params, x, g, True, True)
+    assert torch.equal(dx[:n], dx_w)
+    got = F._unpack_grads(grads, params["embedder.B"].shape[1])
+    for k in F.PARAM_NAMES:
+        assert torch.equal(got[k], g_w[k]), k
+        assert bool(torch.isfinite(got[k]).all()), k
+
+
+@pytest.mark.cuda
+def test_cuda_fused_mlp_bit_reproducible(cuda):
+    """Two K5 launches give the same raw, and two K6 launches of each kind
+    (dx and weight gradients, dx only, weight gradients only) the same dx
+    and weight gradients, bit for bit (split-K partials and ordered
+    reduces, no atomics), at the mapper loss's 379,848 points with its own
+    cotangent."""
+    from pointnerf_slam_torch.ops import fused_mlp as M
+    dec, rays, b = setup(cuda, n=4998)
+    params = {k: v.detach() for k, v in F.params_of(dec).items()}
+    x_all, x, g = S.plain_mapper_points(torch, params, *rays, b)
+    assert torch.equal(M.k5_forward(params, x_all),
+                       M.k5_forward(params, x_all))
+    for pg, xg in ((True, True), (False, True), (True, False)):
+        a = M.k6_backward(params, x, g, pg, xg)
+        c = M.k6_backward(params, x, g, pg, xg)
+        torch.cuda.synchronize()
+        if xg:
+            assert torch.equal(a[0], c[0]) and bool(torch.isfinite(a[0]).all())
+        if pg:
+            for k in F.PARAM_NAMES:
+                assert torch.equal(a[1][k], c[1][k]), (pg, xg, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["mapper", "tracker"])
+def test_cuda_fused_mlp_forward_is_k1s(cuda, mode):
+    """K5's raw on K1's own points (x, y, z of the x4 its forward wrote,
+    read from its workspace after a launch) equals K1's forward raw bit for
+    bit: the same Hopper forward tile and the same arithmetic, fed the
+    points from a (N, 3) array in place of points along rays (the mapper
+    runs K1's forward with its bf16 spill, the tracker without)."""
+    import ctypes
+    from pointnerf_slam_torch.ops import build
+    from pointnerf_slam_torch.ops import fused_mlp as M
+    dec, rays, b = setup(cuda, n=4998)
+    params = {k: v.detach() for k, v in F.params_of(dec).items()}
+    kw = (dict(MAPPER, w_beyond=1.0) if mode == "mapper"
+          else dict(TRACKER, param_grads=False))
+    prep, main = F.make_fused_vg_split(RenderConfig(), mode, **kw)
+    z2 = prep(dec, *rays[:3], b)
+    spec = main.spec
+    lib = build.load("fused_vg")
+    launch, _ = F.vg_launch(lib, spec, params, *rays, z2, b)
+    launch()
+    ws = launch.keep[-1]
+    n, S2 = z2.shape
+    SR = spec.SR if spec.with_reg else 0
+    P = n * (S2 + SR)
+    lib.fused_vg_ws_offset.restype = ctypes.c_longlong
+    off = [int(lib.fused_vg_ws_offset(
+        ctypes.c_int(n), ctypes.c_int(S2), ctypes.c_int(SR),
+        ctypes.c_int(int(spec.param_grads)), ctypes.c_int(w)))
+        for w in (0, 1)]
+    x4, raw = (ws[o:o + P * 16].view(torch.float32).reshape(P, 4)
+               for o in off)
+    raw5 = M.k5_forward(params, x4[:, :3].contiguous())
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(raw).all())
+    assert torch.equal(raw5, raw), float((raw5 - raw).abs().max())
 
 
 @pytest.mark.cuda

@@ -9,10 +9,13 @@ sum float32 products in different orders, and a pre-activation within
 that difference of a bf16 rounding tie rounds the other way); the
 gradients of x and of every parameter by cosine > 0.9999 and norm ratio
 within 1e-3, at width 256 on 700 points and at the tile edges N = 1, 63,
-64, 65 and 1025 (64-point tiles in the CUDA kernels, 1024 in the TPU
-ones)."""
+64, 65 and 1025 (1024-point tiles in the TPU kernels). Also the kernel
+sources (no WMMA left, the decoder pair on the Hopper tile) and the
+wrappers' marshalling on a stub library."""
 
 import dataclasses
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -137,3 +140,87 @@ def test_wrapper_takes_cpu_or_cuda_tensors_only():
     p = {k: v.detach().to("meta") for k, v in dec.named_parameters()}
     with pytest.raises(ValueError):
         fused_imap_mlp(p, torch.zeros(4, 3, device="meta"))
+
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "pointnerf_slam_torch", "ops", "csrc")
+
+
+def _includes(name):
+    with open(os.path.join(CSRC, name)) as f:
+        return re.findall(r'^#include\s+[<"]([^>"]+)[>"]', f.read(), re.M)
+
+
+@pytest.mark.parametrize("name", sorted(os.listdir(CSRC)))
+def test_kernel_sources_hold_no_wmma(name):
+    """Every kernel runs on the Hopper tile (wgmma): no source includes
+    <mma.h> or names nvcuda::wmma (the WMMA tile is retired)."""
+    with open(os.path.join(CSRC, name)) as f:
+        src = f.read()
+    assert "mma.h" not in _includes(name)
+    assert not re.search(r"\bnvcuda\b|\bwmma::", src)
+
+
+def test_decoder_pair_on_the_hopper_tile_and_k2_forward_only():
+    """fused_mlp.cu (K5/K6) includes the Hopper launch sequence and
+    through it the forward and backward tiles; p1_sigma.cu (K2) includes
+    the forward tile alone, so its library holds no backward kernel."""
+    assert _includes("fused_mlp.cu") == ["hopper_vg.cuh"]
+    assert set(_includes("hopper_vg.cuh")) == {"hopper_bwd.cuh",
+                                               "ray_shared.cuh"}
+    assert "hopper_mlp.cuh" in _includes("hopper_bwd.cuh")
+    assert _includes("p1_sigma.cu") == ["hopper_mlp.cuh"]
+    with open(os.path.join(CSRC, "hopper_mlp.cuh")) as f:
+        fwd = f.read()
+    for kernel in ("chain_kernel", "wgrad_kernel", "carve"):
+        assert kernel not in fwd, kernel
+
+
+class _StubFn:
+    """A C entry of a stub library: records its arguments, returns `ret`."""
+
+    def __init__(self, ret):
+        self.ret, self.calls = ret, []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return self.ret
+
+
+@pytest.mark.parametrize("pg,xg", [(True, True), (True, False),
+                                   (False, True)])
+def test_launches_pass_the_images_and_size_the_workspace(monkeypatch, pg,
+                                                         xg):
+    """k5_launch / k6_launch (the wrappers' marshalling, also the kernel
+    comparison script's) on a stub library: K5 gets the forward weight
+    image and a null chain image, K6 both; K6 sizes its workspace by the
+    library's answer for (N, weight gradients) and passes N and its two
+    flags; the outputs have the shapes the kernels write."""
+    import ctypes
+
+    from pointnerf_slam_torch.ops import fused_mlp as M
+    from pointnerf_slam_torch.ops.fused_vg import GRAD_LEN, pack_weights
+    monkeypatch.setattr(M, "_check", lambda *a: None)
+    monkeypatch.setattr(M, "_stream", lambda t: ctypes.c_void_p(0))
+    lib = type("Lib", (), {})()
+    lib.mlp_fwd, lib.mlp_bwd = _StubFn(0), _StubFn(0)
+    lib.mlp_bwd_workspace_bytes = _StubFn(4096)
+    p = {k: v.detach() for k, v in IMAPDecoder(
+        MLPConfig(), torch.Generator().manual_seed(6)).named_parameters()}
+    n = 77
+    x, g = torch.zeros(n, 3), torch.zeros(n, 4)
+    launch, out = M.k5_launch(lib, pack_weights(p), x)
+    assert launch() is out and out.shape == (n, 4)
+    wp = lib.mlp_fwd.calls[-1][0]
+    assert len(wp) == 13 and wp[11] is not None and wp[12] is None
+    assert lib.mlp_fwd.calls[-1][3].value == n
+    launch, (dx, grads) = M.k6_launch(lib, pack_weights(p), x, g, pg, xg)
+    launch()
+    args = lib.mlp_bwd.calls[-1]
+    assert args[0][11] is not None and args[0][12] is not None
+    assert [a.value for a in lib.mlp_bwd_workspace_bytes.calls[-1]] \
+        == [n, int(pg)]
+    assert launch.keep[-1].numel() == 4096
+    assert [a.value for a in args[6:9]] == [n, int(pg), int(xg)]
+    assert dx.shape == ((n, 3) if xg else (1,))
+    assert grads.numel() == (GRAD_LEN if pg else 1)

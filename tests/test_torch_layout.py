@@ -74,9 +74,9 @@ def test_weight_images_hold_the_kernels_operands():
 
 
 def test_pointers_carry_the_images_last():
-    """The kernels read the pointer array as Bp, W0p..Wo, b0..bo (the
-    WMMA kernels stop there), then wf and wc: null until built, wf alone
-    for K2, both for K1, each built once."""
+    """The kernels read the pointer array as Bp, W0p..Wo, b0..bo, then wf
+    and wc: null until built, wf alone for K2 (and K3, K5), both for K1
+    (and K4, K6), each built once."""
     dec = IMAPDecoder(MLPConfig(), torch.Generator().manual_seed(5))
     pw = F.pack_weights(F.params_of(dec))
     ptrs = list(pw.pointers())
