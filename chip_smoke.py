@@ -58,16 +58,29 @@ Phases, in order; any failure raises and the script exits non-zero:
      grad's cover), w_beyond_loss 0: K3/K4 for 20 iterations, loss falls
   9. system, weak depth: room_bench_weak.yaml (the flagship) at 680x1200,
      frames 0..20 as configured (iters_first 1500, colour refine on the
-     last frame): the sparse front-end bootstraps by frame 15 (its 2 deg
-     parallax gate needs ~15 frames of this orbit), continuous tracked
-     frames follow, pseudo-depth agrees with the sensor depth the run never
-     sees, mapping losses fall, poses stay finite and near gt
+     last frame), with outputs.attach_outputs (checkpoints and meshes
+     under output/chip_smoke/room_bench_weak): the sparse front-end
+     bootstraps by frame 15 (its 2 deg parallax gate needs ~15 frames of
+     this orbit), continuous tracked frames follow, pseudo-depth agrees
+     with the sensor depth the run never sees, mapping losses fall, poses
+     stay finite and near gt
+  9b. resume: a fresh card system restored (outputs/logger.resume_slam)
+     from the weak run's pre-bank checkpoint 00019.npz (written before
+     frame 20's mapping): logged again at 19 it gives the file's arrays
+     bit for bit; it runs frame 20 (tracked, mapped with the colour
+     refine: K1 mapper and tracker, K2, counted from 0) within WEAK_T_MAX
+     of gt, and prints its distance from the uninterrupted frame-20 pose
  10. system, dynamic: configs/Synthetic/ablations/box_ba_dynamic.yaml, all
      40 frames (weak depth, handle_dynamic, BA): the tracker runs K3/K4,
      the mapper K1 with ray gradients (BA); tracking lowers the summed loss
  11. the launch counts of phases 4-10, each path counted from 0 (every
-     kernel must have launched on the main paths; K3/K4 on the
-     handle_dynamic tracker, mapper two-kernel and dynamic paths)
+     kernel must have launched on the main paths; K1/K2 on the sensor,
+     weak and resume paths; K3/K4 on the handle_dynamic tracker, mapper
+     two-kernel and dynamic paths)
+ 11b. tools: the port's eval_ate on the weak run's last checkpoint (its
+     Horn RMSE equals run.trajectory_errors' of the run's poses to 1e-9
+     m), and cull_mesh and eval_recon's 3D metrics of phase 5's final
+     mesh against a resolution-128 ground-truth mesh (printed, no bound)
  12. tracking check: the tracker pulls frame 0 back from a 2 cm shift on
      the map that phase 5 built
  13. kernels, map cell: the kernels against their plain versions again,
@@ -86,6 +99,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -135,6 +149,12 @@ PLAIN_FIRST_RTOL = {"tracker": 0.1, "mapper": 2e-2}
 PSEUDO_REL = 0.15           # weak: median relative pseudo-depth error
 WEAK_FRAMES, WEAK_BOOT_BY = 21, 15   # weak: frames run, bootstrap frame
 WEAK_T_MAX = 0.05           # weak: translation error of tracked frames
+WEAK_OUT = os.path.join(HERE, "output", "chip_smoke", "room_bench_weak")
+# resume: the weak run's pre-bank checkpoint before its last mapped frame
+# (mapping every 5th frame, bootstrap at 15)
+RESUME_FROM = WEAK_FRAMES - 2
+ATE_TOL = 1e-9              # tools: eval_ate vs trajectory_errors, metres
+GT_RES = 128                # tools: ground-truth mesh resolution
 DYN_T_MAX = 1.0             # dynamic: max translation error, any frame
 
 
@@ -176,7 +196,6 @@ def sass_summary(build, names) -> dict:
     HMMA (mma.sync, what WMMA compiles to) instructions, names of its
     kernels)} from cuobjdump -sass."""
     import re
-    import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = {}
     for name in names:
@@ -1304,12 +1323,18 @@ def pseudo_errors(slam):
     return out
 
 
-def run_system(torch, cfg, label, n_frames=None):
-    """Run the system; print each logged frame. Returns (slam, seconds,
-    {frame: launch counts after it})."""
+def run_system(torch, cfg, label, n_frames=None, output=None):
+    """Run the system (with outputs.attach_outputs into `output` when
+    given); print each logged frame. Returns (slam, seconds, {frame:
+    launch counts after it})."""
     from pointnerf_slam_torch.engine import PointNeRFSLAM
     from pointnerf_slam_torch.ops import fused_vg as F
-    slam = PointNeRFSLAM(cfg, n_frames_cap=n_frames, device="cuda")
+    slam = PointNeRFSLAM(cfg, n_frames_cap=n_frames, device="cuda",
+                         output=output)
+    if output is not None:
+        from pointnerf_slam_torch.outputs import attach_outputs
+        shutil.rmtree(output, ignore_errors=True)
+        attach_outputs(slam)
     after = {}
 
     def on_frame(s, idx):
@@ -1344,16 +1369,25 @@ def check_poses(slam, label, t_max, tracked_only):
         fail(f"{label}: translation error {worst} m")
 
 
-def phase_weak(torch):
-    """The flagship weak-depth config, frames 0..20 as configured."""
+def weak_config():
     from pointnerf_slam_torch.io.config import load_config
     cfg = load_config(os.path.join(HERE,
                                    "configs/Synthetic/room_bench_weak.yaml"))
     cfg["data"]["frame_cache_dir"] = ""
+    return cfg
+
+
+def phase_weak(torch):
+    """The flagship weak-depth config, frames 0..20 as configured, with
+    the run's outputs attached (checkpoints, meshes). Returns the
+    system."""
+    cfg = weak_config()
     print(f"weak: room_bench_weak 680x1200, frames 0..{WEAK_FRAMES - 1}, "
           f"iters_first {cfg['mapping']['iters_first']}, colour refine on "
-          f"the last frame; widths uncut", flush=True)
-    slam, secs, _ = run_system(torch, cfg, "weak", WEAK_FRAMES)
+          f"the last frame, checkpoints every {cfg['mapping']['ckpt_freq']} "
+          f"mapped frames; widths uncut", flush=True)
+    slam, secs, _ = run_system(torch, cfg, "weak", WEAK_FRAMES,
+                               output=WEAK_OUT)
     b = getattr(slam, "bootstrap_idx", None)
     if b is None or b > WEAK_BOOT_BY:
         fail(f"weak: no bootstrap by frame {WEAK_BOOT_BY} (at {b})")
@@ -1374,7 +1408,126 @@ def phase_weak(torch):
     t = slam.timings
     print(f"weak: {slam.n_img} frames in {secs:.1f} s: front-end "
           f"{t['frontend']:.1f} s, tracking {t['tracking']:.1f} s, mapping "
-          f"{t['mapping']:.1f} s", flush=True)
+          f"{t['mapping']:.1f} s; checkpoints "
+          f"{sorted(os.listdir(os.path.join(WEAK_OUT, 'ckpts')))}",
+          flush=True)
+    return slam
+
+
+def npz_differences(a: str, b: str) -> list:
+    """Keys whose arrays differ (dtype, shape or any bit) between two
+    checkpoints, and keys only one of them holds."""
+    import numpy as np
+    za, zb = np.load(a), np.load(b)
+    diff = sorted(set(za.files) ^ set(zb.files))
+    for k in sorted(set(za.files) & set(zb.files)):
+        x, y = za[k], zb[k]
+        if x.dtype != y.dtype or x.shape != y.shape \
+                or x.tobytes() != y.tobytes():
+            diff.append(k)
+    return diff
+
+
+def phase_resume(torch, weak):
+    """A fresh card system resumed from the weak run's pre-bank checkpoint
+    of frame RESUME_FROM (written before frame RESUME_FROM + 1's mapping,
+    after the bootstrap): logging it again gives the file bit for bit;
+    it then runs the last frame (tracked, mapped with the colour refine),
+    which must land within WEAK_T_MAX of gt. Returns the system."""
+    import numpy as np
+    from pointnerf_slam_torch.engine import PointNeRFSLAM
+    from pointnerf_slam_torch.outputs import attach_outputs
+    from pointnerf_slam_torch.outputs.logger import Logger, resume_slam
+    ckpt = os.path.join(WEAK_OUT, "ckpts", f"{RESUME_FROM:05d}.npz")
+    if not os.path.exists(ckpt):
+        fail(f"resume: the weak run wrote no {ckpt}")
+    out = os.path.join(HERE, "output", "chip_smoke", "room_bench_weak_resumed")
+    shutil.rmtree(out, ignore_errors=True)
+    slam = PointNeRFSLAM(weak_config(), n_frames_cap=WEAK_FRAMES,
+                         device="cuda", output=out)
+    attach_outputs(slam)
+    t0 = time.time()
+    start = resume_slam(slam, ckpt)
+    t_resume = time.time() - t0
+    relog = Logger(os.path.join(out, "relog"), 1, slam.n_img)
+    relog.log(slam, RESUME_FROM)
+    diff = npz_differences(ckpt, os.path.join(out, "relog", "ckpts",
+                                              f"{RESUME_FROM:05d}.npz"))
+    n_keys = len(np.load(ckpt).files)
+    print(f"resume: {ckpt} restored in {t_resume:.1f} s (keyframes "
+          f"{slam.keyframes.frame_idx}, {len(slam.frontend.map.points)} map "
+          f"points, reference frame {slam.frontend.prev['frame_idx']}, depth "
+          f"scale {slam.frontend.depth_scale:.6f}); logged again at "
+          f"{RESUME_FROM}: {n_keys - len(diff)} of {n_keys} arrays equal bit "
+          f"for bit, differing {diff}", flush=True)
+    if start != RESUME_FROM + 1 or diff:
+        fail(f"resume: start {start}, arrays that differ {diff}")
+    t0 = time.time()
+    slam.run(start, on_frame=lambda s, idx: print(
+        "resume: " + frame_line(s.frame_log[-1]), flush=True))
+    torch.cuda.synchronize()
+    last = WEAK_FRAMES - 1
+    rec = {r["idx"]: r for r in slam.frame_log}.get(last, {})
+    if "t_err_m" not in rec or "map_losses" not in rec:
+        fail(f"resume: frame {last} was not tracked and mapped")
+    t_err = float(rec["t_err_m"])
+    gap = float(np.linalg.norm(slam.estimate_c2w_list[last][:3, 3]
+                               - weak.estimate_c2w_list[last][:3, 3]))
+    print(f"resume: frame {last} in {time.time() - t0:.1f} s, t err "
+          f"{t_err * 1000:.2f} mm (bound {WEAK_T_MAX * 1000:.0f} mm); "
+          f"{gap * 1000:.3f} mm from the uninterrupted run's frame-{last} "
+          f"pose", flush=True)
+    if not t_err <= WEAK_T_MAX:
+        fail(f"resume: frame {last} translation error {t_err} m")
+    return slam
+
+
+def phase_tools(sensor, weak):
+    """The port's evaluation tools on this run's outputs: eval_ate on the
+    weak run's last checkpoint (its Horn RMSE equals trajectory_errors' of
+    the run's own poses to ATE_TOL), and cull_mesh and the 3D metrics of
+    the sensor phase's final mesh against a resolution-GT_RES ground-truth
+    mesh (printed; no bound on a 6-frame map)."""
+    import numpy as np
+    from pointnerf_slam_torch.outputs.mesher import write_ply
+    from pointnerf_slam_torch.run import trajectory_errors
+    from pointnerf_slam_torch.tools.cull_mesh import (REPLICA_INTRINSICS,
+                                                      cull_mesh)
+    from pointnerf_slam_torch.tools.eval_ate import (evaluate_ate,
+                                                     latest_checkpoint)
+    from pointnerf_slam_torch.tools.eval_recon import calc_3d_metric
+    from pointnerf_slam_torch.tools.make_synthetic_gt_mesh import \
+        make_gt_mesh
+    t0 = time.time()
+    ckpt = latest_checkpoint(WEAK_OUT)
+    z = np.load(ckpt)
+    ate = evaluate_ate(z["gt_c2w_list"], z["estimate_c2w_list"])
+    te = trajectory_errors(weak.estimate_c2w_list, weak.gt_c2w_list)
+    d = abs(ate["absolute_translational_error.rmse"] - te["ate_rmse"])
+    print(f"tools: eval_ate on {os.path.basename(ckpt)}: RMSE "
+          f"{ate['absolute_translational_error.rmse'] * 1000:.4f} mm over "
+          f"{ate['compared_pose_pairs']} poses; trajectory_errors "
+          f"{te['ate_rmse'] * 1000:.4f} mm (difference {d:.3e} m)",
+          flush=True)
+    if not d <= ATE_TOL:
+        fail(f"tools: eval_ate and trajectory_errors differ by {d} m")
+    mesh_dir = os.path.join(sensor.output, "mesh")
+    rec = os.path.join(mesh_dir, "final_mesh_eval_rec.ply")
+    rec = rec if os.path.exists(rec) else os.path.join(mesh_dir,
+                                                       "final_mesh.ply")
+    verts, tris, _ = make_gt_mesh(GT_RES)
+    v, t = cull_mesh(verts, tris, sensor.gt_c2w_list, **REPLICA_INTRINSICS)
+    gt_path = os.path.join(sensor.output, "room_gt_mesh_culled.ply")
+    write_ply(gt_path, v, t)
+    m3 = calc_3d_metric(rec, gt_path)
+    print(f"tools: resolution-{GT_RES} gt mesh {len(verts)} vertices, "
+          f"culled to the sensor run's {sensor.n_img} frustums {len(v)}; "
+          f"3D metrics of {os.path.basename(rec)}: accuracy "
+          f"{m3['accuracy']:.2f} cm, completion {m3['completion']:.2f} cm, "
+          f"completion ratio {m3['completion ratio']:.2f} %; "
+          f"{time.time() - t0:.1f} s", flush=True)
+    if not all(np.isfinite(list(m3.values()))):
+        fail(f"tools: 3D metrics not finite: {m3}")
 
 
 def phase_dynamic(torch):
@@ -1608,6 +1761,7 @@ def main() -> int:
               ("fused_mlp_fwd", "fused_mlp_bwd")),
              ("mapper two-kernel", lambda: phase_mapper_mk(torch), mk),
              ("weak", lambda: phase_weak(torch), k1),
+             ("resume", lambda: phase_resume(torch, weak), k1),
              ("dynamic", lambda: phase_dynamic(torch),
               ("p1_sigma", "fused_vg_mapper") + mk))
     for label, run, must in paths:
@@ -1624,12 +1778,15 @@ def main() -> int:
                 by_path[k][label] = got[k]
         if label == "sensor":
             slam = out
+        elif label == "weak":
+            weak = out
         elif label == "dynamic":
             dyn = out
     print(f"launches on the main paths: {counts}")
     for k, c in counts.items():
         if c <= 0:
             fail(f"kernel {k} never launched on the main path")
+    phase_tools(slam, weak)
     phase_track_check(torch, slam)
     phase_kernels_map(torch, slam, report)
     phase_kernels_dynamic(torch, dyn, report)

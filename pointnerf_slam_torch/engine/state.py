@@ -139,7 +139,8 @@ class KeyframeBuffer:
 
       color (K, H, W, 3) uint8, depth (K, H, W) float32 (sensor depth),
       pseudo_depth (K, H, W) float32 (weak mode's splatted supervision,
-      0 where absent), est_c2w (K, 7) camera tensors.
+      0 where absent), est_c2w and gt_c2w (K, 7) camera tensors (gt is
+      only written to checkpoints).
     The host keeps the frame-index list."""
 
     def __init__(self, capacity: int, H: int, W: int, device):
@@ -149,13 +150,14 @@ class KeyframeBuffer:
         self.depth = torch.zeros(capacity, H, W, device=device)
         self.pseudo_depth = torch.zeros(capacity, H, W, device=device)
         self.est_c2w = torch.zeros(capacity, 7, device=device)
+        self.gt_c2w = torch.zeros(capacity, 7, device=device)
         self.frame_idx: list = []
 
     def __len__(self):
         return len(self.frame_idx)
 
     def insert(self, frame_idx: int, color_u8, depth, est_c2w7,
-               pseudo_depth=None):
+               pseudo_depth=None, gt_c2w7=None):
         slot = len(self.frame_idx)
         if slot >= self.capacity:
             raise RuntimeError(f"keyframe buffer full ({self.capacity}); "
@@ -168,6 +170,8 @@ class KeyframeBuffer:
             self.pseudo_depth[slot] = torch.as_tensor(pseudo_depth,
                                                       device=dev)
         self.est_c2w[slot] = torch.as_tensor(est_c2w7, device=dev)
+        if gt_c2w7 is not None:
+            self.gt_c2w[slot] = torch.as_tensor(gt_c2w7, device=dev)
 
     def gather_window(self, slots: np.ndarray):
         """(color, depth, pseudo_depth, est_c2w) of the window's slots."""

@@ -34,14 +34,17 @@ Per-frame schedule (the JAX reference's engine/system.py):
 Frames go to the device once each, quantised to u8 colour and u16 depth
 (step depth_max / 65535) as the keyframe store holds them.
 
-Outputs: with outputs.attach_outputs(slam) the mesher runs after every
-frame (mesh cadence, final and eval meshes into <output>/mesh/); output
-is data.output, or the `output` argument.
+Outputs: with outputs.attach_outputs(slam) the checkpoint logger and
+the mesher run after every frame (checkpoints into <output>/ckpts/ at
+mapping.ckpt_freq, and before each mapping frame the state up to the
+frame before it; mesh cadence, final and eval meshes into
+<output>/mesh/); output is data.output, or the `output` argument.
+outputs/logger.resume_slam restores a checkpoint into a fresh system,
+whose run(start_idx) then continues.
 
 Not ported yet (each raises NotImplementedError): NICE and SuperPoint
 (ROADMAP Queue 1 item 11), multi-device mapping (item 11), 'overlap'
-keyframe selection and frustum feature masks (item 11); the checkpoint
-logger (item 9) is not wired.
+keyframe selection and frustum feature masks (item 11).
 """
 
 from __future__ import annotations
@@ -77,7 +80,9 @@ class PointNeRFSLAM:
         self.device = resolve_device(device)
         self.scale = cfg["scale"]
         self.output = output or cfg["data"]["output"]
-        self.mesher = None             # outputs.attach_outputs wires it
+        self.verbose = cfg.get("verbose", False)
+        self.mesher = None             # outputs.attach_outputs wires both
+        self.logger = None
         if cfg.get("nice", False):
             raise NotImplementedError(
                 "NICE mode is not ported yet (ROADMAP Queue 1 item 11)")
@@ -387,7 +392,8 @@ class PointNeRFSLAM:
         _, depth_dev, color_u8 = self._upload_frame(idx, color, sensor_depth)
         self.keyframes.insert(idx, color_u8, depth_dev,
                               self._cam7_current(idx),
-                              pseudo_depth=self.pseudo_depths.get(idx))
+                              pseudo_depth=self.pseudo_depths.get(idx),
+                              gt_c2w7=self._cam7(self.gt_c2w_list[idx]))
 
     # -- main loop ----------------------------------------------------------
     def step(self, idx, color, sensor_depth, gt_c2w):
@@ -519,7 +525,14 @@ class PointNeRFSLAM:
         each. Returns (estimated, gt) c2w lists."""
         for idx in range(start_idx, self.n_img):
             _, color, depth, gt_c2w = self.frame_reader[idx]
+            if (self.logger is not None and idx > 0
+                    and idx % self.ecfg.every_frame == 0):
+                # bank the state up to idx - 1 before this frame's mapping,
+                # as the reference does; a resume from it reruns frame idx
+                self.logger.log(self, idx - 1)
             self.step(idx, color, depth, gt_c2w)
+            if self.logger is not None:
+                self.logger.maybe_log(self, idx)
             if self.mesher is not None:
                 self.mesher.maybe_mesh(self, idx)
             if on_frame is not None:

@@ -24,9 +24,14 @@ splits PRNGKey(7) per solve), so tests can replay the reference's draws.
 
 Matched, not fixed (ROADMAP Queue 3): the three behaviours the reference's
 ADVICE.md flags (the step-history and map-overflow policies and the
-post-advance hold) behave here as in the reference. Not ported: the
-checkpoint state (`state_arrays` / `load_state_arrays`, Queue 1 item 9)
-and `pseudo_depth_for` (a known-pose triangulation no engine path calls).
+post-advance hold) behave here as in the reference.
+
+Checkpoint state: `state_arrays` / `load_state_arrays` save and restore
+the reference keyframe with its features, the keyframe window, the
+persistent map and the counters as flat arrays under the reference's
+`fe2_*` keys, so either package resumes from the other's checkpoint. Not
+ported: `pseudo_depth_for` (a known-pose triangulation no engine path
+calls).
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ import torch
 
 from ..engine.state import Draws
 from .features import HarrisExtractor, SuperPointExtractor
-from .mapstore import _KF_REGISTRY, KeyFrame, Map
+from .mapstore import _KF_REGISTRY, KeyFrame, Map, MapPoint
 from .matching import match_two_way
 from .pseudo_depth import splat_pseudo_depth
 from .triangulate import point_checks, triangulate_points
@@ -648,3 +653,138 @@ class SparseFrontend:
                 or r["n_inliers"] < self.ref_min_inliers:
             self.prev = {"frame_idx": idx, "feats": feats_cur}
         return est_c2w, pseudo
+
+    # -- checkpoint persistence ---------------------------------------------
+    def state_arrays(self) -> dict:
+        """The full front-end state as flat numpy arrays for a checkpoint,
+        under the reference's keys: the reference keyframe and its
+        features, the keyframe window (frame index, keypoints, descriptors,
+        validity, Tcw, angles), the alive map points with their best
+        descriptors and observations (as (point row, keyframe frame index,
+        keypoint) triples), the counters, the parallax rate, the depth
+        ratio, the matcher's threshold and the telemetry as JSON."""
+        import json
+        out = {}
+        if self.prev is not None:
+            kps, desc, val, ang = (None if a is None else _np(a)
+                                   for a in self.prev["feats"])
+            out["fe2_prev_idx"] = np.int64(self.prev["frame_idx"])
+            out["fe2_prev_kps"] = np.asarray(kps, np.float32)
+            out["fe2_prev_desc"] = np.asarray(desc, np.float32)
+            out["fe2_prev_valid"] = np.asarray(val)
+            if ang is not None:
+                out["fe2_prev_ang"] = np.asarray(ang, np.float32)
+        if self._kf_order:
+            kfs = [self._kfs[i] for i in self._kf_order]
+            out["fe2_kf_idx"] = np.asarray([kf.frame_idx for kf in kfs],
+                                           np.int64)
+            out["fe2_kf_kps"] = np.stack([kf.kps for kf in kfs]).astype(
+                np.float32)
+            out["fe2_kf_desc"] = np.stack([kf.desc for kf in kfs]).astype(
+                np.float32)
+            out["fe2_kf_valid"] = np.stack([kf.valid for kf in kfs])
+            out["fe2_kf_Tcw"] = np.stack([kf.Tcw for kf in kfs]).astype(
+                np.float64)
+            if all(kf.angles is not None for kf in kfs):
+                out["fe2_kf_ang"] = np.stack(
+                    [kf.angles for kf in kfs]).astype(np.float32)
+        if self.map is not None and self.map.points:
+            alive = [mp for mp in self.map.points if not mp.is_bad]
+            if alive:
+                kfid2fidx = {self._kfs[i].id: i for i in self._kf_order}
+                out["fe2_mp_pt"] = np.stack(
+                    [mp.pt for mp in alive]).astype(np.float64)
+                d0 = next((mp.des for mp in alive if mp.des is not None),
+                          None)
+                if d0 is not None:
+                    des = np.zeros((len(alive), len(d0)), np.float32)
+                    hasd = np.zeros((len(alive),), bool)
+                    for i, mp in enumerate(alive):
+                        if mp.des is not None:
+                            des[i] = mp.des
+                            hasd[i] = True
+                    out["fe2_mp_des"] = des
+                    out["fe2_mp_hasdes"] = hasd
+                obs = [(i, kfid2fidx[kid], kp)
+                       for i, mp in enumerate(alive)
+                       for kid, kp in mp.observations.items()
+                       if kid in kfid2fidx]
+                out["fe2_obs"] = np.asarray(obs, np.int64).reshape(-1, 3)
+        out["fe2_ref_fail"] = np.int64(self._ref_fail_count)
+        out["fe2_reject_count"] = np.int64(self._reject_count)
+        out["fe2_par_rate"] = np.float64(self._par_rate or 0.0)
+        out["fe2_kp_depth_ratio0"] = np.float64(self.kp_depth_ratio0 or 0)
+        if self.dyn is not None:
+            out["fe2_dyn_thresh"] = np.float64(
+                self.dyn.max_descriptor_distance)
+        out["fe2_telemetry"] = np.str_(json.dumps(self.telemetry))
+        return out
+
+    def load_state_arrays(self, z) -> bool:
+        """Restore what state_arrays saved; the reference keyframe's
+        features go back to the device. Keyframes and map points are made
+        anew in the saved order (new registry ids, as the reference's
+        restore makes them). Returns False, changing nothing, when the
+        checkpoint holds no `fe2_*` state (the caller then reseeds the
+        reference keyframe)."""
+        import json
+        if "fe2_prev_idx" not in z:
+            return False
+        ang = z["fe2_prev_ang"] if "fe2_prev_ang" in z else None
+        self.prev = {
+            "frame_idx": int(z["fe2_prev_idx"]),
+            "feats": (self._dev(z["fe2_prev_kps"]),
+                      self._dev(z["fe2_prev_desc"]),
+                      torch.as_tensor(np.asarray(z["fe2_prev_valid"]),
+                                      device=self.device),
+                      None if ang is None else self._dev(ang))}
+        self._kfs, self._kf_order = {}, []
+        if self.map is not None:
+            self.map.points = []
+        if "fe2_kf_idx" in z and self.map is not None:
+            angs = z["fe2_kf_ang"] if "fe2_kf_ang" in z else None
+            for s, fidx in enumerate(np.asarray(z["fe2_kf_idx"]).tolist()):
+                kf = KeyFrame(int(fidx), np.asarray(z["fe2_kf_kps"][s]),
+                              np.asarray(z["fe2_kf_desc"][s]),
+                              np.asarray(z["fe2_kf_valid"][s]),
+                              np.asarray(z["fe2_kf_Tcw"][s]),
+                              angles=None if angs is None
+                              else np.asarray(angs[s]))
+                self._kfs[int(fidx)] = kf
+                self._kf_order.append(int(fidx))
+                self.map.add_keyframe(kf)
+            if "fe2_mp_pt" in z:
+                pts = np.asarray(z["fe2_mp_pt"])
+                des = z["fe2_mp_des"] if "fe2_mp_des" in z else None
+                hasd = z["fe2_mp_hasdes"] if "fe2_mp_hasdes" in z else None
+                mps = [MapPoint(pts[i]) for i in range(len(pts))]
+                obs = z["fe2_obs"] if "fe2_obs" in z \
+                    else np.zeros((0, 3), np.int64)
+                for row, fidx, kp in np.asarray(obs):
+                    kf = self._kfs.get(int(fidx))
+                    if kf is not None:
+                        mps[int(row)].add_observation(kf, int(kp))
+                for i, mp in enumerate(mps):
+                    if des is not None and hasd is not None and hasd[i]:
+                        mp.des = np.asarray(des[i])
+                self.map.points = [mp for mp in mps
+                                   if mp.num_observations >= 1]
+                for fidx in self._kf_order:
+                    self.map.graph.update_connections(self._kfs[fidx])
+        self._ref_fail_count = int(z["fe2_ref_fail"]) \
+            if "fe2_ref_fail" in z else 0
+        self._reject_count = int(z["fe2_reject_count"]) \
+            if "fe2_reject_count" in z else 0
+        pr = float(z["fe2_par_rate"]) if "fe2_par_rate" in z else 0.0
+        self._par_rate = pr if pr > 0 else None
+        kpr = float(z["fe2_kp_depth_ratio0"]) \
+            if "fe2_kp_depth_ratio0" in z else 0.0
+        self.kp_depth_ratio0 = kpr if kpr > 0 else None
+        if self.dyn is not None and "fe2_dyn_thresh" in z:
+            self.dyn.max_descriptor_distance = float(z["fe2_dyn_thresh"])
+        if "fe2_telemetry" in z:
+            try:
+                self.telemetry = json.loads(str(z["fe2_telemetry"]))
+            except ValueError:
+                pass
+        return True

@@ -146,6 +146,18 @@ def params_from_jax(tree) -> dict:
     return {k: v.to(torch.float32) for k, v in sd.items()}
 
 
+def tree_order(state_dict: dict) -> list:
+    """The state_dict's keys in the order the JAX reference flattens its
+    parameter tree (dict keys sorted at every level, lists in order):
+    embedder.B, then b before w of each layer, then out.b, out.w. The
+    checkpoint's param_{i} arrays follow this order."""
+    n = 1 + max(int(k.split(".")[1]) for k in state_dict
+                if k.startswith("layers."))
+    return (["embedder.B"]
+            + [f"layers.{i}.{leaf}" for i in range(n) for leaf in "bw"]
+            + ["out.b", "out.w"])
+
+
 def params_to_jax(state_dict: dict) -> dict:
     """Inverse of params_from_jax: state_dict -> numpy parameter tree."""
     def npy(k):

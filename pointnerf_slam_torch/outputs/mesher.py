@@ -30,8 +30,9 @@ Periodic meshes are built by a MeshJob, a generator advanced a few device
 chunks per frame, from a MeshSnapshot of the system; the final frame
 builds `{idx}_mesh.ply`, `final_mesh.ply` and (meshing.eval_rec)
 `final_mesh_eval_rec.ply` synchronously. write_ply, read_ply,
-cull_faces, clean_components and vertex_normals are copies of the
-reference's numpy pieces (the port imports nothing of the JAX package).
+filter_mesh, cull_faces, clean_components and vertex_normals are copies
+of the reference's numpy pieces (the port imports nothing of the JAX
+package).
 The reference pads each chunk to a power of two and the keyframe axis to
 16 to bound its jit retraces; eager torch needs neither (the padded
 chunk's zero points do enter depth_test's forecast gate, the maximum
@@ -177,6 +178,14 @@ def _drop_unreferenced(verts, tris):
     remap = -np.ones(len(verts), np.int64)
     remap[used] = np.arange(used.sum())
     return verts[used], remap[tris]
+
+
+def filter_mesh(verts, tris, keep_verts):
+    """Keep the faces whose three vertices survive; reindex."""
+    remap = -np.ones(len(verts), np.int64)
+    remap[keep_verts] = np.arange(keep_verts.sum())
+    face_ok = keep_verts[tris].all(axis=1)
+    return verts[keep_verts], remap[tris[face_ok]]
 
 
 def cull_faces(verts, tris, drop_verts):
