@@ -73,10 +73,36 @@ Phases, in order; any failure raises and the script exits non-zero:
  10. system, dynamic: configs/Synthetic/ablations/box_ba_dynamic.yaml, all
      40 frames (weak depth, handle_dynamic, BA): the tracker runs K3/K4,
      the mapper K1 with ray gradients (BA); tracking lowers the summed loss
- 11. the launch counts of phases 4-10, each path counted from 0 (every
+ 10b. superpoint: the distilled checkpoint
+     (pretrained/superpoint_synthetic.npz) in the SuperPoint extractor on
+     the card against its float32 run on the CPU on frame 0 of the
+     flagship (heatmap, descriptors, keypoints on the same pixel, angles;
+     ms per frame, CUDA-event median of 10); then room_bench_weak.yaml's
+     bootstrap decisions with superpoint_weights naming it, frames 5, 10,
+     15 and 20 against frame 0 (refused and why, or bootstrapped and the
+     pose's t err): with the RANSAC hypotheses drawn from the CPU test's
+     generator they equal SP_DECISIONS, the CPU test's pin for both
+     packages; with the card's own generator at each of SP_SEEDS every
+     bootstrap lands within SP_BOOT_T_MAX of gt (the share that
+     bootstraps is printed); then the 21 frames through the system with
+     the card's own generator (seed 7, a user's run): it bootstraps where
+     the probe's seed 7 did, and after a bootstrap the pose
+     (SP_BOOT_T_MAX), the tracked frames (WEAK_T_MAX) and the mapping
+     losses are held, and K1/K2 must launch (without one, none may)
+ 10c. readers: frames 0-5 of the synthetic room rendered at
+     configs/TUM_RGBD/tum_imap.yaml's camera (480x640) and written in the
+     TUM layout with cv2; the port's TUM reader gives them back to their
+     u8 / u16 quantisation with frame 0's pose the identity (through the
+     y/z flip); then tum_imap.yaml's published budgets on them through
+     the system (only data.input_folder, data.output and the room bound
+     rebased into the reader's frame overridden): t err of frames 1-5
+     within CAM_T_MAX, then the tracker pulls frame 0 back from a 2 cm
+     shift on the map they built (as phase 12 does on room_bench's), K1/K2
+     launches exactly tum_schedule's, ms per tracker and mapper iteration
+ 11. the launch counts of phases 4-10c, each path counted from 0 (every
      kernel must have launched on the main paths; K1/K2 on the sensor,
-     weak and resume paths; K3/K4 on the handle_dynamic tracker, mapper
-     two-kernel and dynamic paths)
+     weak, resume and readers paths; K3/K4 on the handle_dynamic tracker,
+     mapper two-kernel and dynamic paths)
  11b. tools: the port's eval_ate on the weak run's last checkpoint (its
      Horn RMSE equals run.trajectory_errors' of the run's poses to 1e-9
      m), and cull_mesh and eval_recon's 3D metrics of phase 5's final
@@ -156,6 +182,25 @@ RESUME_FROM = WEAK_FRAMES - 2
 ATE_TOL = 1e-9              # tools: eval_ate vs trajectory_errors, metres
 GT_RES = 128                # tools: ground-truth mesh resolution
 DYN_T_MAX = 1.0             # dynamic: max translation error, any frame
+SP_NPZ = os.path.join(HERE, "pretrained", "superpoint_synthetic.npz")
+# superpoint: the flagship's front-end decision at each tracked frame
+# before a bootstrap with the distilled checkpoint, as the CPU test pins
+# for both packages (tests/test_torch_superpoint.py)
+SP_DECISIONS = {5: "refused", 10: "refused", 15: "refused", 20: "refused"}
+SP_HEAT = 1e-4              # superpoint: card vs CPU heatmap max abs
+SP_DESC = 1e-4              # superpoint: coarse descriptors max abs
+SP_SHARE = 0.98             # superpoint: keypoints on the same pixel, angles
+SP_ANGLE = 1e-4             # superpoint: angle agreement, radians
+# superpoint: seeds of the card's own RANSAC generator whose bootstrap
+# decisions are probed (7, the front-end's default, first), and the bound
+# on a bootstrap's translation error: the reference's own SuperPoint
+# bootstraps read up to 64 mm over 40 seeds (PERF.md, PR 8), and the
+# camera has moved 127 mm by frame 15, so a bootstrap that leaves it at
+# frame 0 fails
+SP_SEEDS = (7, 0, 1, 2, 3, 4)
+SP_BOOT_T_MAX = 0.10
+TUM_CFG = "configs/TUM_RGBD/tum_imap.yaml"
+TUM_FRAMES = 6              # readers: frames of the TUM fixture
 
 
 def fail(msg: str) -> None:
@@ -1586,7 +1631,7 @@ def frame_line(rec) -> str:
     return ", ".join(line)
 
 
-def phase_track_check(torch, slam):
+def phase_track_check(torch, slam, label="track check"):
     """The tracker on frame 0 of the map, started 2 cm off along +y, must
     come back within 2 mm (a tracker that does nothing stays 20 mm off)."""
     import numpy as np
@@ -1599,12 +1644,12 @@ def phase_track_check(torch, slam):
     best, bl, fl, _ = slam.tracking_step(slam.decoder, slam._cam7(start), c,
                                          d, slam.bound, draws)
     err = float(torch.linalg.norm(best[4:] - slam._cam7(gt0)[4:]))
-    print(f"track check: frame 0 from +{SHIFT_M * 100:.0f} cm: loss "
+    print(f"{label}: frame 0 from +{SHIFT_M * 100:.0f} cm: loss "
           f"{float(fl):.2f} -> {float(bl):.2f}, t err {SHIFT_M * 1000:.1f} "
           f"-> {err * 1000:.3f} mm", flush=True)
     if not err <= SHIFT_BACK_M:
-        fail(f"track check: t err {err} m after tracking from a "
-             f"{SHIFT_M} m shift")
+        fail(f"{label}: t err {err} m after tracking from a {SHIFT_M} m "
+             f"shift")
 
 
 def frame_rays(torch, slam, idx, n, gen):
@@ -1698,6 +1743,348 @@ def phase_kernels_dynamic(torch, slam, report):
         report[k]["max_abs_err"] = max(report[k]["max_abs_err"], v)
 
 
+# -- SuperPoint and the real-dataset readers ----------------------------------
+
+def check_superpoint(torch, gray_np, max_kps=1000):
+    """The SuperPoint extractor on the card against its plain float32 run
+    on the CPU on one gray frame: heatmap and coarse descriptors, the
+    share of valid keypoints on the same pixel, and on those the angles.
+    Returns the readings; fails past SP_HEAT / SP_DESC / SP_SHARE."""
+    import numpy as np
+    from pointnerf_slam_torch.frontend.features import (SuperPointExtractor,
+                                                        superpoint_forward)
+    out = {}
+    ex = {d: SuperPointExtractor(SP_NPZ, max_kps=max_kps, device=d)
+          for d in ("cuda", "cpu")}
+    res = {}
+    for d, e in ex.items():
+        g = torch.as_tensor(gray_np, device=d)
+        with torch.no_grad():
+            heat, desc = superpoint_forward(e.net, g)
+        res[d] = [x.cpu().numpy() for x in (heat, desc) + tuple(
+            e.extract(g))]
+    hc, dc, kc, _, vc, ac = res["cuda"]
+    hp, dp, kp, _, vp, ap = res["cpu"]
+    out["heat_max_abs"] = float(np.abs(hc - hp).max())
+    out["desc_max_abs"] = float(np.abs(dc - dp).max())
+    pc = {tuple(k): i for i, k in enumerate(np.round(kc).astype(int))
+          if vc[i]}
+    pp = {tuple(k): i for i, k in enumerate(np.round(kp).astype(int))
+          if vp[i]}
+    shared = sorted(set(pc) & set(pp))
+    out["keypoints"] = (len(pc), len(pp))
+    out["keypoint_share"] = len(shared) / max(len(pc), len(pp), 1)
+    da = np.abs(ac[[pc[k] for k in shared]] - ap[[pp[k] for k in shared]])
+    out["angle_max_abs"] = float(da.max()) if len(da) else 0.0
+    out["angle_share"] = float((da <= SP_ANGLE).mean()) if len(da) else 0.0
+    g = torch.as_tensor(gray_np, device="cuda")
+    out["ms"] = timed(lambda: ex["cuda"].extract(g))
+    if not (out["heat_max_abs"] <= SP_HEAT and out["desc_max_abs"] <= SP_DESC
+            and out["keypoint_share"] >= SP_SHARE
+            and out["angle_share"] >= SP_SHARE and len(pc) > 20):
+        fail(f"superpoint: card against CPU {out}")
+    return out
+
+
+class SpMemo:
+    """An extractor that extracts each distinct image once (a torch tensor
+    or, in the CPU tests and scripts/twoview_draws_probe.py, a JAX
+    array)."""
+
+    def __init__(self, ex, seen):
+        self.ex, self.seen = ex, seen
+
+    def extract(self, gray):
+        import numpy as np
+        key = np.asarray(gray.cpu() if hasattr(gray, "cpu") else gray
+                         ).tobytes()
+        if key not in self.seen:
+            self.seen[key] = self.ex.extract(gray)
+        return self.seen[key]
+
+
+def sp_decisions(fe, frames):
+    """One front-end tries the bootstrap against frame 0 at each frame of
+    SP_DECISIONS in turn, as the system does, and stops at the first that
+    passes: ({frame: "refused" | "bootstrapped"}, {frame: the refusal, or
+    the pose's translation error against gt in m})."""
+    import numpy as np
+    got, why = {}, {}
+    for idx in SP_DECISIONS:
+        try:
+            est = fe.bootstrap(frames, 0, idx, frames[0][3])[0]
+        except RuntimeError as err:
+            got[idx], why[idx] = "refused", str(err)
+            continue
+        got[idx] = "bootstrapped"
+        why[idx] = float(np.linalg.norm(np.asarray(est)[:3, 3]
+                                        - frames[idx][3][:3, 3]))
+        break
+    return got, why
+
+
+def phase_superpoint(torch):
+    """The distilled checkpoint on the card against the CPU on frame 0 of
+    the flagship. Then the front-end's bootstrap decisions on frames 5,
+    10, 15 and 20 of room_bench_weak.yaml with superpoint_weights naming
+    it: with the RANSAC hypotheses drawn from a CPU generator seeded as
+    the front-end's (the CPU test's draws, moved to the card, as
+    scripts/twoview_draws_probe.py --cpu_draws does) they must be
+    SP_DECISIONS, the CPU test's; with the card's own generator at each of
+    SP_SEEDS every bootstrap's translation error must stay within
+    SP_BOOT_T_MAX. Last, the 21 frames through the system as a user runs
+    it (the card's own generator, seed 7): it bootstraps where the
+    probe's seed 7 did, and after a bootstrap the pose stays within
+    SP_BOOT_T_MAX, its tracked frames within WEAK_T_MAX and its mapping
+    losses fall. Returns (the system, whether it bootstrapped)."""
+    import numpy as np
+    from pointnerf_slam_torch.engine.state import Draws
+    from pointnerf_slam_torch.frontend import fused_twoview as TV
+    from pointnerf_slam_torch.frontend.features import SuperPointExtractor
+    from pointnerf_slam_torch.frontend.frontend import SparseFrontend
+    from pointnerf_slam_torch.io.datasets import get_dataset
+    cfg = weak_config()
+    reader = get_dataset(cfg)
+    frames = {i: reader[i] for i in (0,) + tuple(SP_DECISIONS)}
+    r = check_superpoint(torch, np.asarray(frames[0][1], np.float32).mean(-1))
+    print(f"superpoint: 680x1200 frame 0, card against CPU float32: heatmap "
+          f"max abs {r['heat_max_abs']:.3e} (bound {SP_HEAT}), descriptors "
+          f"{r['desc_max_abs']:.3e} (bound {SP_DESC}), valid keypoints "
+          f"{r['keypoints']} with {r['keypoint_share']:.4f} on the same "
+          f"pixel, angles max abs {r['angle_max_abs']:.3e} "
+          f"({r['angle_share']:.4f} within {SP_ANGLE}); "
+          f"{r['ms']:.3f} ms per frame on the card (extract, CUDA-event "
+          f"median of 10)", flush=True)
+    cfg["superpoint_weights"] = SP_NPZ
+    c, seen = cfg["cam"], {}
+
+    def frontend(gen):
+        fe = SparseFrontend(cfg, c["H"], c["W"], c["fx"], c["fy"], c["cx"],
+                            c["cy"], device="cuda", draws=Draws(gen))
+        if not isinstance(fe.extractor, SuperPointExtractor):
+            fail(f"superpoint: the front-end took {type(fe.extractor)}")
+        fe.extractor = SpMemo(fe.extractor, seen)
+        return fe
+
+    def said(got, why):
+        return "; ".join(
+            f"{i} {d} ({why[i]})" if d == "refused" else
+            f"{i} {d} ({why[i] * 1000:.2f} mm off gt)"
+            for i, d in got.items())
+
+    draw = TV.draw_hypotheses
+    TV.draw_hypotheses = lambda g, mv: draw(g, mv.cpu()).to(mv.device)
+    try:
+        got, why = sp_decisions(frontend(
+            torch.Generator(device="cpu").manual_seed(7)), frames)
+    finally:
+        TV.draw_hypotheses = draw
+    print(f"superpoint: CPU draws, seed 7: {said(got, why)}", flush=True)
+    if got != SP_DECISIONS:
+        fail(f"superpoint: decisions {got}, the CPU test pins "
+             f"{SP_DECISIONS}")
+    boots = {}
+    for seed in SP_SEEDS:
+        got, why = sp_decisions(frontend(
+            torch.Generator(device="cuda").manual_seed(seed)), frames)
+        print(f"superpoint: card draws, seed {seed}: {said(got, why)}",
+              flush=True)
+        for i, d in got.items():
+            if d == "bootstrapped":
+                boots[seed] = (i, why[i])
+                if not why[i] <= SP_BOOT_T_MAX:
+                    fail(f"superpoint: seed {seed} bootstrapped at frame "
+                         f"{i} {why[i]} m off gt")
+    print(f"superpoint: {len(boots)} of {len(SP_SEEDS)} seeds of the card's "
+          f"generator bootstrap by frame {max(SP_DECISIONS)}: "
+          f"{ {s: b[0] for s, b in boots.items()} }", flush=True)
+    slam, secs, _ = run_system(torch, cfg, "superpoint", WEAK_FRAMES)
+    b = getattr(slam, "bootstrap_idx", None)
+    want = boots.get(7, (None,))[0]
+    print(f"superpoint: {slam.n_img} frames in {secs:.1f} s with the card's "
+          f"generator (seed 7): bootstrap at {b} (the probe's seed 7: "
+          f"{want})", flush=True)
+    if b != want:
+        fail(f"superpoint: the system bootstrapped at {b}, its front-end "
+             f"alone at {want}")
+    if b is not None:
+        t = float(np.linalg.norm(slam.estimate_c2w_list[b][:3, 3]
+                                 - slam.gt_c2w_list[b][:3, 3]))
+        print(f"superpoint: bootstrap pose {t * 1000:.2f} mm off gt",
+              flush=True)
+        if not t <= SP_BOOT_T_MAX:
+            fail(f"superpoint: bootstrap pose {t} m off gt")
+        for rec in slam.frame_log:
+            if "map_losses" in rec and not falls(rec["map_losses"], 10):
+                fail(f"superpoint: mapping loss of frame {rec['idx']} did "
+                     f"not fall")
+        if any("t_err_m" in rec for rec in slam.frame_log):
+            check_poses(slam, "superpoint", WEAK_T_MAX, tracked_only=True)
+    return slam, b is not None
+
+
+def tum_camera():
+    from pointnerf_slam_torch.io.config import load_config
+    return load_config(os.path.join(HERE, TUM_CFG))
+
+
+def write_tum_fixture(root, n=TUM_FRAMES):
+    """Frames 0..n-1 of the synthetic room (room_bench's orbit) rendered at
+    tum_imap.yaml's camera, written in the TUM layout: rgb/ and depth/
+    PNGs (8-bit colour, 16-bit depth at png_depth_scale) written with
+    cv2, rgb.txt, depth.txt and groundtruth.txt (30
+    Hz, quaternions; raw poses are the NeRF c2w seen through the reader's
+    y/z flip). Returns (colour (n, H, W, 3), depth (n, H, W), c2w (n, 4,
+    4)) as rendered, and the room bound rebased into the reader's frame
+    (frame 0's flipped pose inverted: the reader's poses are relative to
+    frame 0)."""
+    import cv2
+    import numpy as np
+    from scipy.spatial.transform import Rotation
+    from pointnerf_slam_torch.io.config import load_config
+    from pointnerf_slam_torch.io.synthetic import SyntheticDataset
+    tum = tum_camera()
+    room = load_config(os.path.join(HERE, "configs/Synthetic/room_bench.yaml"))
+    ds = SyntheticDataset({"cam": tum["cam"], "data": dict(
+        room["data"], frame_cache_dir="")})
+    scale = float(tum["cam"]["png_depth_scale"])
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "rgb"))
+    os.makedirs(os.path.join(root, "depth"))
+    F = np.diag([1.0, -1.0, -1.0, 1.0])
+    t0 = 1305031102.175304
+    rgb, dep, gt = [], [], []
+    colors, depths, c2ws = [], [], []
+    for i in range(n):
+        _, c, d, c2w = ds[i]
+        t = t0 + i / 30.0
+        name = f"{t:.6f}.png"
+        cv2.imwrite(os.path.join(root, "rgb", name), np.round(
+            np.clip(c, 0, 1) * 255).astype(np.uint8)[..., ::-1])
+        cv2.imwrite(os.path.join(root, "depth", name), np.round(
+            d * scale).astype(np.uint16))
+        rgb.append(f"{t:.6f} rgb/{name}")
+        dep.append(f"{t:.6f} depth/{name}")
+        raw = c2w.astype(np.float64) @ F
+        q = Rotation.from_matrix(raw[:3, :3]).as_quat()
+        gt.append(f"{t:.6f} " + " ".join(f"{v:.9f}" for v in
+                                          [*raw[:3, 3], *q]))
+        colors.append(c)
+        depths.append(d)
+        c2ws.append(c2w)
+    head = "# timestamp filename\n"
+    for fn, lines in (("rgb.txt", rgb), ("depth.txt", dep),
+                      ("groundtruth.txt", gt)):
+        with open(os.path.join(root, fn), "w") as fh:
+            fh.write(head + "\n".join(lines) + "\n")
+    M = F @ np.linalg.inv(c2ws[0].astype(np.float64))
+    lo, hi = np.array(room["mapping"]["bound"], np.float64).T
+    corners = np.array([[x, y, z] for x in (lo[0], hi[0])
+                        for y in (lo[1], hi[1]) for z in (lo[2], hi[2])])
+    cw = corners @ M[:3, :3].T + M[:3, 3]
+    bound = [[float(np.floor(a * 100) / 100), float(np.ceil(b * 100) / 100)]
+             for a, b in zip(cw.min(0), cw.max(0))]
+    return (np.stack(colors), np.stack(depths), np.stack(c2ws)), M, bound
+
+
+def check_tum_reader(root, fixture, M, n=TUM_FRAMES):
+    """The port's TUM reader on the fixture: colour and depth equal the
+    rendered frames to the files' u8 / u16 quantisation, frame 0's pose is
+    the identity seen through the y/z flip, and every pose is the rendered
+    c2w in the rebased frame (M @ c2w). Returns the largest errors."""
+    import numpy as np
+    from pointnerf_slam_torch.io.datasets import get_dataset
+    cfg = tum_camera()
+    cfg["data"]["input_folder"] = root
+    ds = get_dataset(cfg)
+    if len(ds) != n:
+        fail(f"readers: the TUM reader found {len(ds)} frames, not {n}")
+    colors, depths, c2ws = fixture
+    scale = float(cfg["cam"]["png_depth_scale"])
+    err = {"color": 0.0, "depth": 0.0, "pose": 0.0}
+    for i in range(n):
+        idx, c, d, pose = ds[i]
+        err["color"] = max(err["color"], float(np.abs(c - colors[i]).max()))
+        err["depth"] = max(err["depth"], float(np.abs(d - depths[i]).max()))
+        want = M @ c2ws[i].astype(np.float64)
+        err["pose"] = max(err["pose"], float(np.abs(pose - want).max()))
+    pose0 = ds[0][3]
+    if not (err["color"] <= 0.5 / 255 + 1e-6
+            and err["depth"] <= 0.5 / scale + 1e-6 and err["pose"] <= 1e-5
+            and np.array_equal(pose0, np.diag([1, -1, -1, 1]).astype(
+                np.float32))):
+        fail(f"readers: TUM frames or poses off the fixture: {err}, frame "
+             f"0's pose {pose0.tolist()}")
+    return err
+
+
+def tum_schedule(cfg, n, track_checks=0):
+    """K1 / K2 launches the sensor-depth schedule gives n frames: frame 0
+    mapped with iters_first, frames 1..n-1 tracked (tracking.iters) and
+    mapped every mapping.every_frame (3 outers of iters/3; the last frame
+    the colour refine, 5 outers of iters); one K2 per resampled batch of
+    either; `track_checks` more tracking calls (phase_track_check)."""
+    m, t = cfg["mapping"], cfg["tracking"]
+    km = max(int(m.get("resample_every", 1)), 1)
+    kt = max(int(t.get("resample_every", 1)), 1)
+    tracker = (n - 1 + track_checks) * t["iters"]
+    mapped = [i for i in range(1, n)
+              if i % m["every_frame"] == 0 or i == n - 1]
+    per = [5 * m["iters"] if i == n - 1 and m["color_refine"]
+           else 3 * max(m["iters"] // 3, 1) for i in mapped]
+    mapper = m["iters_first"] + sum(per)
+    p1 = tracker // kt + m["iters_first"] // km + sum(p // km for p in per)
+    return {"fused_vg_tracker": tracker, "fused_vg_mapper": mapper,
+            "p1_sigma": p1}
+
+
+def phase_readers(torch):
+    """Frames 0..TUM_FRAMES-1 of the synthetic room written in the TUM
+    layout at tum_imap.yaml's camera, read back by the port's reader, then
+    run through the system with tum_imap.yaml's published budgets (only
+    data.input_folder, data.output and the rebased bound overridden): the
+    translation error of frames 1.. stays within CAM_T_MAX, and on the map
+    they built the tracker pulls frame 0 back from a 2 cm shift
+    (phase_track_check). Returns the system; the caller holds its K1/K2
+    launches, the track check's included, to tum_schedule."""
+    root = os.path.join(HERE, "output", "chip_smoke", "tum_fixture")
+    t0 = time.time()
+    fixture, M, bound = write_tum_fixture(root)
+    err = check_tum_reader(root, fixture, M)
+    print(f"readers: TUM fixture of {TUM_FRAMES} frames at 480x640 (fx "
+          f"517.3, png_depth_scale 5000) written and read back in "
+          f"{time.time() - t0:.1f} s; largest colour error "
+          f"{err['color']:.3e} (u8 step {1 / 255:.3e}), depth "
+          f"{err['depth']:.3e} m (u16 step {1 / 5000:.1e}), pose "
+          f"{err['pose']:.2e}; rebased bound {bound}", flush=True)
+    cfg = tum_camera()
+    cfg["data"]["input_folder"] = root
+    cfg["data"]["output"] = os.path.join(HERE, "output", "chip_smoke", "tum")
+    cfg["mapping"]["bound"] = bound
+    m, t = cfg["mapping"], cfg["tracking"]
+    print(f"readers: {TUM_CFG}: tracking {t['iters']} iterations, every "
+          f"frame mapped with {m['iters']}, iters_first {m['iters_first']}, "
+          f"{m['pixels']} pixels, {cfg['rendering']['N_samples']}+"
+          f"{cfg['rendering']['N_importance']} samples; widths uncut",
+          flush=True)
+    slam, secs, _ = run_system(torch, cfg, "readers", TUM_FRAMES)
+    check_poses(slam, "readers", CAM_T_MAX, tracked_only=True)
+    phase_track_check(torch, slam, "readers: track check")
+    from pointnerf_slam_torch.engine import PointNeRFSLAM
+    tr = mp = 0.0
+    for rec in slam.frame_log:
+        dev = PointNeRFSLAM.device_seconds(rec)
+        tr += dev.get("tracking", 0.0)
+        mp += dev.get("mapping", 0.0)
+    want = tum_schedule(cfg, TUM_FRAMES)
+    print(f"readers: {slam.n_img} frames in {secs:.1f} s; card "
+          f"{tr / want['fused_vg_tracker'] * 1e3:.3f} ms per tracker "
+          f"iteration, {mp / want['fused_vg_mapper'] * 1e3:.3f} ms per "
+          f"mapper iteration (phase CUDA events over the schedule's "
+          f"iterations)", flush=True)
+    return slam
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print("chip_smoke: takes no arguments", file=sys.stderr)
@@ -1763,7 +2150,9 @@ def main() -> int:
              ("weak", lambda: phase_weak(torch), k1),
              ("resume", lambda: phase_resume(torch, weak), k1),
              ("dynamic", lambda: phase_dynamic(torch),
-              ("p1_sigma", "fused_vg_mapper") + mk))
+              ("p1_sigma", "fused_vg_mapper") + mk),
+             ("superpoint", lambda: phase_superpoint(torch), ()),
+             ("readers", lambda: phase_readers(torch), k1))
     for label, run, must in paths:
         F.reset_launches()
         out = run()
@@ -1782,6 +2171,22 @@ def main() -> int:
             weak = out
         elif label == "dynamic":
             dyn = out
+        elif label == "superpoint":
+            # after a bootstrap the mapper and the tracker run K1/K2;
+            # without one no frame is mapped or tracked
+            if out[1] and not all(got[k] for k in k1):
+                fail(f"superpoint: K1/K2 not launched after the bootstrap: "
+                     f"{got}")
+            if not out[1] and any(got[k] for k in k1):
+                fail(f"superpoint: K1/K2 launched without a bootstrap: "
+                     f"{got}")
+        elif label == "readers":
+            want = tum_schedule(out.cfg, TUM_FRAMES, track_checks=1)
+            if any(got[k] != v for k, v in want.items()):
+                fail(f"readers: K1/K2 launches {got}, the schedule gives "
+                     f"{want}")
+            print(f"readers: K1/K2 launches equal the schedule {want}",
+                  flush=True)
     print(f"launches on the main paths: {counts}")
     for k, c in counts.items():
         if c <= 0:

@@ -42,8 +42,12 @@ frame before it; mesh cadence, final and eval meshes into
 outputs/logger.resume_slam restores a checkpoint into a fresh system,
 whose run(start_idx) then continues.
 
-Not ported yet (each raises NotImplementedError): NICE and SuperPoint
-(ROADMAP Queue 1 item 11), multi-device mapping (item 11), 'overlap'
+Datasets: every reader of io/datasets.py (synthetic, replica, scannet,
+tumrgbd, cofusion, azure). Weak mode's front-end takes SuperPoint where
+`superpoint_weights` names a checkpoint that exists, else Harris.
+
+Not ported yet (each raises NotImplementedError): NICE mode (ROADMAP
+Queue 1 item 11), multi-device mapping (item 11, parallel/), 'overlap'
 keyframe selection and frustum feature masks (item 11).
 """
 

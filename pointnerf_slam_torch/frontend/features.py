@@ -5,19 +5,32 @@ frontend/features.py), behind `extract(gray) -> (kps, desc, valid, angles)`:
     suppression, a static top-K with validity, quadratic sub-pixel
     refinement, 11x11 normalized-patch descriptors and ORB-style
     intensity-centroid orientations.
-  - `SuperPointExtractor`: not ported (ROADMAP Queue 1 item 11); it raises.
+  - `SuperPointExtractor`: the SuperPoint CNN (shared VGG encoder,
+    65-channel detector head, 256-d descriptor head; the public MagicLeap
+    SuperPointNet layout) as `SuperPointNet`, weights from the public
+    `superpoint_v1.pth` state dict (`load_superpoint_torch`) or the
+    packages' shared npz (`load_superpoint_npz`: `name.w` / `name.b`, the
+    distilled `pretrained/superpoint_synthetic.npz`); max-pool NMS on the
+    heatmap (losers score 0), the static top-K at conf_thresh, the same
+    sub-pixel refinement, descriptors bilinearly sampled from the coarse
+    map (the reference's own formula, align-corners mapping), and the
+    intensity-centroid angles of the gray image.
 
 The top-K is a stable descending sort, so equal scores keep the lower flat
-index first (jax.lax.top_k's order; torch.topk promises none).
+index first (jax.lax.top_k's order; torch.topk promises none). The
+convolutions run in float32: on the card TF32 is switched off around the
+forward (cuDNN allows it by default; the reference computes in float32).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 import torch.nn.functional as Fn
 
-SUPERPOINT_TODO = ("the SuperPoint extractor is not ported (ROADMAP Queue 1 "
-                   "item 11); set superpoint_weights: none for Harris")
+from ..utils.device import resolve_device
 
 
 def _maxpool_nms(score: torch.Tensor, radius: int) -> torch.Tensor:
@@ -161,8 +174,165 @@ class HarrisExtractor:
         return kps, desc, valid, angles
 
 
-class SuperPointExtractor:
-    """Not ported: raises (ROADMAP Queue 1 item 11)."""
+# ---------------------------------------------------------------------------
+# SuperPoint
+# ---------------------------------------------------------------------------
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(SUPERPOINT_TODO)
+_SP_LAYERS = [  # (name, in, out, kernel)
+    ("conv1a", 1, 64, 3), ("conv1b", 64, 64, 3),
+    ("conv2a", 64, 64, 3), ("conv2b", 64, 64, 3),
+    ("conv3a", 64, 128, 3), ("conv3b", 128, 128, 3),
+    ("conv4a", 128, 128, 3), ("conv4b", 128, 128, 3),
+]
+_SP_HEADS = [("convPa", 128, 256, 3), ("convPb", 256, 65, 1),
+             ("convDa", 128, 256, 3), ("convDb", 256, 256, 1)]
+
+
+def init_superpoint(generator: Optional[torch.Generator] = None) -> dict:
+    """Random SuperPoint parameters (He init, zero biases) as {name: {"w":
+    (out, in, k, k), "b": (out,)}}, the layout the loaders fill."""
+    params = {}
+    for name, cin, cout, ks in _SP_LAYERS + _SP_HEADS:
+        w = torch.randn((cout, cin, ks, ks), generator=generator) \
+            * float(np.sqrt(2.0 / (cin * ks * ks)))
+        params[name] = {"w": w, "b": torch.zeros(cout)}
+    return params
+
+
+def load_superpoint_torch(path: str) -> dict:
+    """Parameters from the public superpoint_v1.pth (a SuperPointNet state
+    dict: `{name}.weight`, `{name}.bias`)."""
+    sd = torch.load(path, map_location="cpu")
+    return {name: {"w": sd[f"{name}.weight"].float(),
+                   "b": sd[f"{name}.bias"].float()}
+            for name, *_ in _SP_LAYERS + _SP_HEADS}
+
+
+def save_superpoint_npz(path: str, params: dict) -> None:
+    """Parameters as a flat npz of `name.w` / `name.b` arrays (the format
+    both packages read)."""
+    flat = {}
+    for name, p in params.items():
+        for kind in ("w", "b"):
+            v = p[kind]
+            flat[f"{name}.{kind}"] = v.detach().cpu().numpy() \
+                if torch.is_tensor(v) else np.asarray(v)
+    np.savez_compressed(path, **flat)
+
+
+def load_superpoint_npz(path: str) -> dict:
+    z = np.load(path)
+    params = {}
+    for k in z.files:
+        name, kind = k.rsplit(".", 1)
+        params.setdefault(name, {})[kind] = torch.from_numpy(
+            np.asarray(z[k], np.float32))
+    return params
+
+
+class SuperPointNet(torch.nn.Module):
+    """The SuperPoint network: 3x3 convolutions with padding 1 and 1x1 with
+    padding 0, 2x2 max-pools of stride 2 after blocks 1-3; forward(x (B, 1,
+    H, W)) -> (semi (B, 65, H/8, W/8) logits, unit-norm desc (B, 256, H/8,
+    W/8))."""
+
+    def __init__(self, params: Optional[dict] = None):
+        super().__init__()
+        for name, cin, cout, ks in _SP_LAYERS + _SP_HEADS:
+            setattr(self, name, torch.nn.Conv2d(cin, cout, ks, 1, ks // 2))
+        if params is not None:
+            self.load_params(params)
+
+    @torch.no_grad()
+    def load_params(self, params: dict) -> None:
+        for name, p in params.items():
+            conv = getattr(self, name)
+            conv.weight.copy_(torch.as_tensor(p["w"]))
+            conv.bias.copy_(torch.as_tensor(p["b"]))
+
+    def params(self) -> dict:
+        return {name: {"w": getattr(self, name).weight,
+                       "b": getattr(self, name).bias}
+                for name, *_ in _SP_LAYERS + _SP_HEADS}
+
+    def forward(self, x):
+        relu = torch.relu
+        for i, blk in enumerate(("conv1", "conv2", "conv3", "conv4")):
+            x = relu(getattr(self, blk + "a")(x))
+            x = relu(getattr(self, blk + "b")(x))
+            if i < 3:
+                x = Fn.max_pool2d(x, 2, 2)
+        semi = self.convPb(relu(self.convPa(x)))
+        desc = self.convDb(relu(self.convDa(x)))
+        desc = desc / torch.clamp(torch.linalg.norm(desc, dim=1,
+                                                    keepdim=True), min=1e-10)
+        return semi, desc
+
+
+def superpoint_forward(net: SuperPointNet, gray: torch.Tensor):
+    """gray (H, W) in [0, 1], H and W multiples of 8 -> (heatmap (H, W),
+    desc_coarse (256, H/8, W/8)): the softmax over the 65 channels without
+    the dustbin, each cell's 64 channels laid out as its 8x8 pixels
+    (row-major: pixel_shuffle)."""
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        semi, desc = net(gray.to(torch.float32)[None, None])
+    dense = torch.softmax(semi, dim=1)[:, :-1]
+    return Fn.pixel_shuffle(dense, 8)[0, 0], desc[0]
+
+
+def _sample_desc(desc_coarse: torch.Tensor, kps: torch.Tensor, H: int,
+                 W: int) -> torch.Tensor:
+    """Bilinear samples of the coarse descriptor map at pixel keypoints
+    (align-corners mapping of [0, W-1] onto [0, Wc-1]), renormalised."""
+    D, Hc, Wc = desc_coarse.shape
+    sx = (kps[:, 0] / (W - 1)) * (Wc - 1)
+    sy = (kps[:, 1] / (H - 1)) * (Hc - 1)
+    x0 = torch.floor(sx).to(torch.int64).clamp(0, Wc - 1)
+    y0 = torch.floor(sy).to(torch.int64).clamp(0, Hc - 1)
+    x1 = (x0 + 1).clamp(max=Wc - 1)
+    y1 = (y0 + 1).clamp(max=Hc - 1)
+    fx = (sx - x0)[:, None]
+    fy = (sy - y0)[:, None]
+    d = desc_coarse.permute(1, 2, 0)
+    v = (d[y0, x0] * (1 - fx) * (1 - fy) + d[y0, x1] * fx * (1 - fy)
+         + d[y1, x0] * (1 - fx) * fy + d[y1, x1] * fx * fy)
+    return v / torch.clamp(torch.linalg.norm(v, dim=1, keepdim=True),
+                           min=1e-10)
+
+
+class SuperPointExtractor:
+    """SuperPoint keypoints, descriptors and angles on `device` (the card
+    unless the caller asks for the CPU). Weights: a .npz (the shared npz),
+    another path (a superpoint_v1.pth state dict) or None (random, seeded
+    0)."""
+
+    def __init__(self, weights_path: Optional[str] = None,
+                 max_kps: int = 3000, conf_thresh: float = 0.015,
+                 nms_dist: int = 4, border: int = 4, device=None):
+        if weights_path is not None and weights_path.endswith(".npz"):
+            params = load_superpoint_npz(weights_path)
+        elif weights_path is not None:
+            params = load_superpoint_torch(weights_path)
+        else:
+            params = init_superpoint(torch.Generator().manual_seed(0))
+        self.net = SuperPointNet(params).to(resolve_device(device)).eval()
+        self.max_kps = max_kps
+        self.conf_thresh, self.nms_dist, self.border = \
+            conf_thresh, nms_dist, border
+
+    @torch.no_grad()
+    def extract(self, gray: torch.Tensor):
+        H, W = gray.shape
+        if H % 8 or W % 8:
+            raise ValueError(f"SuperPoint needs H, W divisible by 8, got "
+                             f"{H}x{W}")
+        gray = gray.to(torch.float32)
+        heat, desc_c = superpoint_forward(self.net, gray)
+        score = torch.where(_maxpool_nms(heat, self.nms_dist), heat,
+                            torch.zeros_like(heat))
+        kps, valid, _ = _topk_keypoints(score, self.max_kps, self.border,
+                                        self.conf_thresh)
+        kps = _subpixel_refine(heat, kps)
+        desc = _sample_desc(desc_c, kps, H, W)
+        angles = intensity_centroid_angles(gray, kps)
+        return kps, desc, valid, angles

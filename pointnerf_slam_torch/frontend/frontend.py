@@ -29,9 +29,11 @@ post-advance hold) behave here as in the reference.
 Checkpoint state: `state_arrays` / `load_state_arrays` save and restore
 the reference keyframe with its features, the keyframe window, the
 persistent map and the counters as flat arrays under the reference's
-`fe2_*` keys, so either package resumes from the other's checkpoint. Not
-ported: `pseudo_depth_for` (a known-pose triangulation no engine path
-calls).
+`fe2_*` keys, so either package resumes from the other's checkpoint.
+
+`pseudo_depth_for` triangulates a frame at known poses (no E solve)
+against the previous tracked frame, or an older cached keyframe with the
+persistent map on; no engine path calls it.
 """
 
 from __future__ import annotations
@@ -147,17 +149,19 @@ class SparseFrontend:
         self.check_orientation = bool(cfg.get("check_orientation", True))
 
     def _default_extractor(self, cfg, H, W):
-        """The reference's rule: SuperPoint when usable weights exist and
-        the image divides the 8x8 cell grid, else Harris
-        (`superpoint_weights: none` forces Harris). SuperPoint is not
-        ported, so where the reference would load it the port raises."""
+        """The reference's rule: SuperPoint when the checkpoint that
+        `superpoint_weights` names exists (a .pth state dict or the shared
+        .npz; default the public pretrained/superpoint_v1.pth) and the
+        image divides the 8x8 cell grid, else Harris
+        (`superpoint_weights: none` forces Harris)."""
         sp_cfg = cfg.get("superpoint_weights",
                          "pretrained/superpoint_v1.pth")
         if str(sp_cfg).lower() in ("none", "off", "false") \
                 or H % 8 or W % 8:
             return HarrisExtractor(max_kps=self.max_kps)
         if os.path.exists(str(sp_cfg)):
-            return SuperPointExtractor(str(sp_cfg), max_kps=self.max_kps)
+            return SuperPointExtractor(str(sp_cfg), max_kps=self.max_kps,
+                                       device=self.device)
         return HarrisExtractor(max_kps=self.max_kps)
 
     # -- helpers -----------------------------------------------------------
@@ -653,6 +657,113 @@ class SparseFrontend:
                 or r["n_inliers"] < self.ref_min_inliers:
             self.prev = {"frame_idx": idx, "feats": feats_cur}
         return est_c2w, pseudo
+
+    def pseudo_depth_for(self, frame_reader, idx: int,
+                         estimate_c2w_list: np.ndarray,
+                         cur_c2w_pred: np.ndarray,
+                         field_depth_fn=None):
+        """Pseudo-depth of frame idx by triangulation at KNOWN poses (the
+        estimate of the partner frame and the motion-model prediction
+        cur_c2w_pred), without an essential-matrix solve: the partner is
+        the reference keyframe (the previous tracked frame), or with the
+        persistent map the newest cached keyframe at least 8 frames old
+        (a longer baseline conditions the DLT better). The reprojection
+        gate widens 3 -> 6 -> 10 px until 16 points pass; the scene-scale
+        gate keeps depths within 0.25-4x the median gt depth, and with
+        field_depth_fn (uv_px (N, 2) -> rendered field depth (N,)) a
+        candidate of a 25 px gate within 15% of the field's depth is
+        accepted too. Registers the pair in the map, makes frame idx the
+        reference. Returns the pseudo-depth (H, W) or None."""
+        if self.prev is None:
+            return None
+        feats_cur = self._feat_cache.pop(idx, None)
+        if feats_cur is None:
+            _, color_cur, _, _ = frame_reader[idx]
+            feats_cur = self._extract(color_cur)
+        ref_idx = self.prev["frame_idx"]
+        kps_r, desc_r, val_r, ang_r = self.prev["feats"]
+        kpn_ref_full = self._kpn(kps_r)
+        if self.map is not None:
+            older = [i for i in self._kf_order if idx - i >= 8]
+            if older:
+                kf = self._kfs[older[-1]]
+                ref_idx = kf.frame_idx
+                kpn_ref_full = self._dev(kf.kps)
+                desc_r = self._dev(kf.desc)
+                val_r = torch.as_tensor(np.asarray(kf.valid),
+                                        device=self.device)
+                ang_r = self._dev(kf.angles) \
+                    if kf.angles is not None else None
+        Tcw_ref_cv = nerf_c2w_to_cv_w2c(estimate_c2w_list[ref_idx])
+        Tcw_cur_cv = nerf_c2w_to_cv_w2c(cur_c2w_pred)
+        Tc, Tr = self._dev(Tcw_cur_cv), self._dev(Tcw_ref_cv)
+
+        kps_c, desc_c, val_c, ang_c = feats_cur
+        idx2, mvalid, _ = match_two_way(desc_c, val_c, desc_r, val_r,
+                                        self.nn_thresh)
+        if self.check_orientation and ang_r is not None:
+            from .rotation_histogram import \
+                filter_matches_with_histogram_orientation
+            mvalid = filter_matches_with_histogram_orientation(
+                ang_r[idx2], ang_c, mvalid, min_keep=16, min_frac=0.7)
+        kpn_cur = self._kpn(kps_c)
+        kpn_ref = kpn_ref_full[idx2]
+        pts3d, ok = triangulate_points(Tc, Tr, kpn_cur, kpn_ref)
+        for gate in (3.0, 6.0, 10.0):
+            acc, z_cur, _, uvn_cur, uvn_ref = point_checks(
+                pts3d, Tc, Tr, kpn_cur, kpn_ref, self.fx,
+                max_reproj_px=gate)
+            accept = _np(acc & mvalid & ok)
+            if accept.sum() >= 16:
+                break
+        uv_cur = _np(uvn_cur) * [self.fx, self.fy] + [self.cx, self.cy]
+        z_cur = _np(z_cur)
+        n_cand = int(accept.sum())
+        n_scale = n_field = -1
+        if self.median_gt_depth is not None:
+            scale_ok = (z_cur > 0.25 * self.median_gt_depth) \
+                & (z_cur < 4.0 * self.median_gt_depth)
+            if field_depth_fn is not None:
+                acc_w, _, _, _, _ = point_checks(
+                    pts3d, Tc, Tr, kpn_cur, kpn_ref, self.fx,
+                    max_reproj_px=25.0)
+                cand_wide = _np(acc_w & mvalid & ok)
+                zf = _np(field_depth_fn(uv_cur))
+                field_ok = (zf > 1e-3) & (z_cur > 1e-3) \
+                    & (np.abs(z_cur - zf)
+                       <= np.maximum(0.15 * zf,
+                                     0.02 * self.median_gt_depth))
+                n_field = int((cand_wide & field_ok).sum())
+                accept = (accept & scale_ok) | (cand_wide & field_ok)
+            else:
+                accept = accept & scale_ok
+            n_scale = int((accept & scale_ok).sum())
+        self.telemetry.append({
+            "idx": idx, "n_matches": int(_np(mvalid).sum()),
+            "n_inliers": -1, "n_cand": n_cand, "n_scale_ok": n_scale,
+            "n_field_ok": n_field, "n_accept": int(accept.sum()),
+            "scale": float(self.depth_scale or 1.0)})
+        uv_ref_px = _np(uvn_ref) * [self.fx, self.fy] + [self.cx, self.cy]
+        self.last_debug = {"ref_idx": ref_idx, "cur_idx": idx,
+                           "kps_ref": uv_ref_px, "kps_cur": uv_cur.copy(),
+                           "accept": accept.copy()}
+        self.prev = {"frame_idx": idx, "feats": feats_cur}
+        if self.map is not None:
+            # the map takes the pair's observations before the sparsity
+            # exit: its confirmed projections can carry the frame alone
+            kf_ref = self._kf_for(ref_idx, kpn_ref_full, desc_r, val_r,
+                                  Tcw_ref_cv, angles=ang_r)
+            kf_cur = self._kf_for(idx, kpn_cur, desc_c, val_c, Tcw_cur_cv,
+                                  angles=ang_c)
+            uv_m, z_m, acc_m = self._map_update(
+                idx, kf_cur, kf_ref, _np(idx2), _np(pts3d), accept,
+                Tcw_cur_cv)
+            uv_cur = np.concatenate([uv_cur, uv_m], axis=0)
+            z_cur = np.concatenate([z_cur, z_m], axis=0)
+            accept = np.concatenate([accept, acc_m], axis=0)
+        if int(accept.sum()) < 8:
+            return None
+        return self._splat(uv_cur, z_cur, accept)
 
     # -- checkpoint persistence ---------------------------------------------
     def state_arrays(self) -> dict:

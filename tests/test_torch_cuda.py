@@ -576,3 +576,37 @@ def test_cuda_megakernel_bit_reproducible(cuda, with_reg):
     torch.cuda.synchronize()
     assert torch.equal(a[0], c[0]) and torch.equal(a[1], c[1])
     assert bool(torch.isfinite(a[1]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["box", "room"])
+def test_cuda_superpoint_matches_cpu(cuda, which):
+    """The SuperPoint extractor (distilled checkpoint) on the card against
+    its float32 run on the CPU (chip_smoke.check_superpoint: heatmap and
+    descriptors within 1e-4, >= 98% of keypoints on the same pixel and
+    their angles within 1e-4): a 120x160 box frame and the flagship's
+    680x1200 frame 0."""
+    import os
+    from pointnerf_slam_torch.io.config import load_config
+    from pointnerf_slam_torch.io.datasets import get_dataset
+    if which == "room":
+        cfg = S.weak_config()
+        max_kps = 1000
+    else:
+        cfg = load_config(os.path.join(S.HERE, "configs/Synthetic/box.yaml"))
+        max_kps = 300
+    color = get_dataset(cfg)[0][1]
+    r = S.check_superpoint(torch, np.asarray(color, np.float32).mean(-1),
+                           max_kps=max_kps)
+    assert r["keypoints"][0] > 20
+
+
+def test_tum_fixture_round_trip(tmp_path):
+    """The smoke's TUM fixture (chip_smoke.write_tum_fixture: PNGs written
+    with cv2) read back by the port's TUM reader: frames equal the render
+    to the u8 / u16 quantisation, poses the rebased c2w
+    (chip_smoke.check_tum_reader)."""
+    fixture, M, bound = S.write_tum_fixture(str(tmp_path / "tum"), n=3)
+    err = S.check_tum_reader(str(tmp_path / "tum"), fixture, M, n=3)
+    assert err["color"] > 0 and err["depth"] > 0
+    assert all(lo < hi for lo, hi in bound)

@@ -114,9 +114,6 @@ def test_cuda_request_without_card_raises():
 
 
 @pytest.mark.parametrize("edit,match", [
-    # weak mode where the reference would load SuperPoint weights
-    (lambda c: c.update(weak_depth=True, superpoint_weights=os.path.join(
-        REPO, "pretrained", "superpoint_synthetic.npz")), "item 11"),
     (lambda c: c.update(nice=True), "NICE"),
     (lambda c: c["mapping"].update(keyframe_selection_method="overlap"),
      "overlap"),
@@ -124,13 +121,26 @@ def test_cuda_request_without_card_raises():
     # frustum feature masks (the mapper's grid masks, NICE's)
     (lambda c: c["mapping"].update(frustum_feature_selection=True),
      "item 11"),
-    (lambda c: c["data"].update(dataset="replica"), "not ported"),
 ])
 def test_unported_modes_raise(edit, match):
     cfg = box_cfg()
     edit(cfg)
     with pytest.raises(NotImplementedError, match=match):
         PointNeRFSLAM(cfg, n_frames_cap=2, device="cpu")
+
+
+@pytest.mark.parametrize("weights,extractor", [
+    (os.path.join(REPO, "pretrained", "superpoint_synthetic.npz"),
+     "SuperPointExtractor"),
+    ("none", "HarrisExtractor"),
+    (os.path.join(REPO, "pretrained", "absent.pth"), "HarrisExtractor")])
+def test_weak_mode_selects_the_extractor(weights, extractor):
+    """The reference's rule: SuperPoint where superpoint_weights names a
+    checkpoint that exists, else Harris."""
+    cfg = box_cfg()
+    cfg.update(weak_depth=True, superpoint_weights=weights)
+    slam = PointNeRFSLAM(cfg, n_frames_cap=2, device="cpu")
+    assert type(slam.frontend.extractor).__name__ == extractor
 
 
 @pytest.mark.parametrize("edit", [
