@@ -58,8 +58,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      grad's cover), w_beyond_loss 0: K3/K4 for 20 iterations, loss falls
   9. system, weak depth: room_bench_weak.yaml (the flagship) at 680x1200,
      frames 0..20 as configured (iters_first 1500, colour refine on the
-     last frame), with outputs.attach_outputs (checkpoints and meshes
-     under output/chip_smoke/room_bench_weak): the sparse front-end
+     last frame), with outputs.attach_outputs (checkpoints, meshes and,
+     at vis_freq 5 for this run only, the five writers' folders under
+     output/chip_smoke/room_bench_weak): the sparse front-end
      bootstraps by frame 15 (its 2 deg parallax gate needs ~15 frames of
      this orbit), continuous tracked frames follow, pseudo-depth agrees
      with the sensor depth the run never sees, mapping losses fall, poses
@@ -99,10 +100,32 @@ Phases, in order; any failure raises and the script exits non-zero:
      within CAM_T_MAX, then the tracker pulls frame 0 back from a 2 cm
      shift on the map they built (as phase 12 does on room_bench's), K1/K2
      launches exactly tum_schedule's, ms per tracker and mapper iteration
- 11. the launch counts of phases 4-10c, each path counted from 0 (every
+ 10d. outputs: the weak run's mapping_vis, tracking_vis, matches_vis,
+     traj_vis and loss_vis folders hold files that decode; render_img at
+     680x1200 on its map at frame 20's pose, with the sensor depth as the
+     prior (as the panels render), within RENDER_REL of the sensor depth
+     on the median ray, and without a prior the same in chunks of 16384
+     and 65536 rays; ms per full-frame render. No kernel launches.
+ 10e. NICE: room_bench.yaml with configs/nice_slam.yaml's keys overlaid
+     in code, full width (32-wide decoders, c_dim 32, grids up to 28^3 x
+     32), frames 0..10 with the outputs attached: the middle, fine and
+     colour grids move, losses finite, tracked frames within CAM_T_MAX,
+     the final mesh has faces, the NICE tracker (20 calls of its 200 rays
+     x 10 iterations) from frame 0 shifted 2 cm closes half the gap
+     between the start's and gt's loss (its own loss, on a fixed pixel
+     batch); then a static-camera variant (gt
+     poses, no BA, frames 0..5): cells outside frame 0's frustum bit for
+     bit unmoved; ms per tracker and per mapper iteration by stage. No
+     kernel launches (the reference keeps NICE off the kernels).
+ 11. the launch counts of phases 4-10e, each path counted from 0 (every
      kernel must have launched on the main paths; K1/K2 on the sensor,
      weak, resume and readers paths; K3/K4 on the handle_dynamic tracker,
      mapper two-kernel and dynamic paths)
+ 11a. run.py: python -m pointnerf_slam_torch.run on the readers phase's
+     TUM fixture (a generated config inheriting tum_imap.yaml with its
+     bound, 15 mapping and 10 tracking iterations) with --input_folder,
+     --n_frames 3 and --profile: exit 0 and a Chrome trace written (its
+     kernel launches are the subprocess's, not counted)
  11b. tools: the port's eval_ate on the weak run's last checkpoint (its
      Horn RMSE equals run.trajectory_errors' of the run's poses to 1e-9
      m), and cull_mesh and eval_recon's 3D metrics of phase 5's final
@@ -201,6 +224,23 @@ SP_SEEDS = (7, 0, 1, 2, 3, 4)
 SP_BOOT_T_MAX = 0.10
 TUM_CFG = "configs/TUM_RGBD/tum_imap.yaml"
 TUM_FRAMES = 6              # readers: frames of the TUM fixture
+OUT_VIS_FREQ = 5            # outputs: the weak run's writer cadence
+OUT_DIRS = ("mapping_vis", "tracking_vis", "matches_vis", "traj_vis",
+            "loss_vis")
+RENDER_REL = 0.15           # outputs: median rel. error of render_img depth
+CHUNK_SHARE, CHUNK_ABS = 0.99, 1e-2   # outputs: chunk invariance
+NICE_FRAMES = 11            # nice: frames 0..10 at full width
+NICE_STATIC_FRAMES = 6      # nice: static-camera variant (maps 0 and 5)
+NICE_ITERS = 10             # nice: iterations per timed stage
+RUNPY_FRAMES = 3            # run.py: --n_frames
+RUNPY_TIMEOUT = 300         # run.py: seconds for the subprocess
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reads them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
 
 
 def fail(msg: str) -> None:
@@ -1368,14 +1408,18 @@ def pseudo_errors(slam):
     return out
 
 
-def run_system(torch, cfg, label, n_frames=None, output=None):
+def run_system(torch, cfg, label, n_frames=None, output=None,
+               grids0=None):
     """Run the system (with outputs.attach_outputs into `output` when
-    given); print each logged frame. Returns (slam, seconds, {frame:
-    launch counts after it})."""
+    given); print each logged frame. With a dict `grids0`, fill it with
+    copies of a NICE system's grids as the run starts. Returns (slam,
+    seconds, {frame: launch counts after it})."""
     from pointnerf_slam_torch.engine import PointNeRFSLAM
     from pointnerf_slam_torch.ops import fused_vg as F
     slam = PointNeRFSLAM(cfg, n_frames_cap=n_frames, device="cuda",
                          output=output)
+    if grids0 is not None:
+        grids0.update({k: v.clone() for k, v in slam.c_grid.items()})
     if output is not None:
         from pointnerf_slam_torch.outputs import attach_outputs
         shutil.rmtree(output, ignore_errors=True)
@@ -1427,10 +1471,14 @@ def phase_weak(torch):
     the run's outputs attached (checkpoints, meshes). Returns the
     system."""
     cfg = weak_config()
+    # the writers' cadence for this run only: phase_outputs reads their
+    # files (the panels render after the step and change no state)
+    cfg["mapping"]["vis_freq"] = cfg["tracking"]["vis_freq"] = OUT_VIS_FREQ
     print(f"weak: room_bench_weak 680x1200, frames 0..{WEAK_FRAMES - 1}, "
           f"iters_first {cfg['mapping']['iters_first']}, colour refine on "
           f"the last frame, checkpoints every {cfg['mapping']['ckpt_freq']} "
-          f"mapped frames; widths uncut", flush=True)
+          f"mapped frames, writers every {OUT_VIS_FREQ} frames; widths "
+          f"uncut", flush=True)
     slam, secs, _ = run_system(torch, cfg, "weak", WEAK_FRAMES,
                                output=WEAK_OUT)
     b = getattr(slam, "bootstrap_idx", None)
@@ -1642,7 +1690,7 @@ def phase_track_check(torch, slam, label="track check"):
     start[1, 3] += SHIFT_M
     draws = Draws(torch.Generator(device=slam.device).manual_seed(7))
     best, bl, fl, _ = slam.tracking_step(slam.decoder, slam._cam7(start), c,
-                                         d, slam.bound, draws)
+                                         d, slam.bound, draws, slam.c_grid)
     err = float(torch.linalg.norm(best[4:] - slam._cam7(gt0)[4:]))
     print(f"{label}: frame 0 from +{SHIFT_M * 100:.0f} cm: loss "
           f"{float(fl):.2f} -> {float(bl):.2f}, t err {SHIFT_M * 1000:.1f} "
@@ -2085,6 +2133,319 @@ def phase_readers(torch):
     return slam
 
 
+def phase_outputs(torch, weak):
+    """The weak run's writers (its vis_freq OUT_VIS_FREQ): the five folders
+    hold their files and each decodes to an image. render_img at 680x1200
+    on that map at frame WEAK_FRAMES-1's estimated pose: with the sensor
+    depth as the prior (as the panels render) its median relative depth
+    error against the sensor depth stays within RENDER_REL; without a
+    prior it is the same in chunks of 16384 and 65536 rays (CHUNK_SHARE of
+    the pixels within 1e-4, all within CHUNK_ABS); ms per full-frame
+    render (CUDA events, median of 3)."""
+    import cv2
+    import numpy as np
+    from pointnerf_slam_torch.render.renderer import render_img
+    got = {}
+    for sub in OUT_DIRS:
+        d = os.path.join(WEAK_OUT, sub)
+        files = sorted(os.listdir(d)) if os.path.isdir(d) else []
+        for f in files:
+            img = cv2.imread(os.path.join(d, f))
+            if img is None or img.size == 0:
+                fail(f"outputs: {sub}/{f} does not decode")
+        got[sub] = files
+        if not files:
+            fail(f"outputs: {sub} is empty")
+    print(f"outputs: {WEAK_OUT}: {got}", flush=True)
+    idx = weak.n_img - 1
+    _, color, depth, _ = weak.frame_reader[idx]
+    c2w = weak.estimate_c2w_list[idx]
+    args = (weak.decoder, weak.rcfg, weak.H, weak.W, weak.fx, weak.fy,
+            weak.cx, weak.cy, c2w, weak.bound)
+    ms = []
+    for _ in range(3):
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        dep, _, col = render_img(*args, gt_depth=depth)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+    dep = dep.cpu().numpy()
+    m = depth > 0
+    rel = float(np.median(np.abs(dep[m] - depth[m]) / depth[m]))
+    finite = bool(np.isfinite(dep).all() and torch.isfinite(col).all())
+    d1, _, c1 = render_img(*args, chunk=16384)
+    d2, _, c2 = render_img(*args, chunk=65536)
+    err = torch.maximum((d1 - d2).abs(), (c1 - c2).abs().amax(-1))
+    share = float((err <= 1e-4).float().mean())
+    print(f"outputs: ({card()}) render_img {weak.H}x{weak.W} at frame "
+          f"{idx}'s pose: "
+          f"{float(np.median(ms)):.3f} ms per frame (median of 3: "
+          f"{', '.join(f'{t:.3f}' for t in ms)}); depth against the sensor "
+          f"depth, median relative error {rel:.4f} (bound {RENDER_REL}); "
+          f"chunks 16384 against 65536: {share:.5f} of pixels within 1e-4, "
+          f"largest difference {float(err.max()):.3e}", flush=True)
+    if not finite:
+        fail("outputs: render_img gave a non-finite value")
+    if not rel <= RENDER_REL:
+        fail(f"outputs: render_img depth median relative error {rel}")
+    if not (share >= CHUNK_SHARE and float(err.max()) <= CHUNK_ABS):
+        fail(f"outputs: render_img depends on the chunk ({share}, "
+             f"{float(err.max())})")
+    return float(np.median(ms))
+
+
+def nice_config():
+    """room_bench.yaml with configs/nice_slam.yaml's keys overlaid (the
+    overlay tests/test_nice_mode.py makes on its tiny config): NICE grids
+    and decoders (32 wide, c_dim 32; grid_len coarse 2 enlarged x2,
+    middle 0.32, fine 0.16, colour 0.16), occupancy, 32 + 16 surface
+    samples, tracking 200 pixels x 10 iterations every frame with
+    handle_dynamic, mapping 1000 pixels x 60 iterations every 5th frame
+    (iters_first 1500), BA, overlap windows, frustum feature selection;
+    the last frame's colour refine cut."""
+    import yaml
+    from pointnerf_slam_torch.io.config import load_config, update_recursive
+    cfg = load_config(os.path.join(HERE, "configs/Synthetic/room_bench.yaml"))
+    with open(os.path.join(HERE, "configs/nice_slam.yaml")) as fh:
+        update_recursive(cfg, yaml.safe_load(fh))
+    cfg["data"]["frame_cache_dir"] = ""
+    # cut: no end-of-run colour refine (5 outers of the window, ~10 s)
+    cfg["mapping"]["color_refine"] = False
+    return cfg
+
+
+def nice_timings(torch, slam):
+    """ms per mapper iteration by stage (the last frame's window, each
+    stage's step NICE_ITERS times after one warm-up call) and per tracker
+    iteration (the last frame), CUDA events."""
+    import numpy as np
+    from pointnerf_slam_torch.engine.state import Draws
+    idx = slam.n_img - 1
+    _, color, depth, _ = slam.frame_reader[idx]
+    c, d, u8 = slam._upload_frame(idx, color, depth)
+    slots = slam._select_window(False, d, slam.estimate_c2w_list[idx])
+    win = slam._window(slots, slam.max_window, u8, d,
+                       slam._cam7(slam.estimate_c2w_list[idx]))
+    valid = win[3]
+    draws = Draws(torch.Generator(device=slam.device).manual_seed(3))
+    masks = slam._frustum_masks(idx, d)
+    grids = {k: v.clone() for k, v in slam.c_grid.items()}
+    state = {k: v.clone() for k, v in slam.decoder.state_dict().items()}
+    out = {}
+    for stage in ("coarse", "middle", "fine", "color"):
+        fn = slam._get_mapper_step(slam.max_window, False, stage)
+        ba = torch.zeros_like(valid)
+        for n in (1, NICE_ITERS):
+            a, b = torch.cuda.Event(enable_timing=True), \
+                torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn(slam.decoder, *win[:3], valid, ba, slam.bound, draws, n,
+               slam.c_grid, masks)
+            b.record()
+            b.synchronize()
+        out[f"mapper {stage}"] = a.elapsed_time(b) / NICE_ITERS
+    slam.c_grid = grids                    # the timing changed nothing
+    slam.decoder.load_state_dict(state)
+    cam = slam._cam7(slam.estimate_c2w_list[idx])
+    for n in (1, 2):
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        slam.tracking_step(slam.decoder, cam, c, d, slam.bound, draws,
+                           slam.c_grid)
+        b.record()
+        b.synchronize()
+    out["tracker"] = a.elapsed_time(b) / slam.ecfg.num_cam_iters
+    return {k: float(np.round(v, 4)) for k, v in out.items()}
+
+
+def phase_nice(torch):
+    """NICE at full width (nice_config) for frames 0..NICE_FRAMES-1 with
+    the outputs attached: mapping losses finite, the middle, fine and
+    colour grids moved, tracked frames within CAM_T_MAX, the final mesh
+    written with faces; the tracker pulls frame 0 back from a 2 cm shift
+    on that map; then a static-camera variant (orbit 0, gt poses, no BA,
+    no coarse level, frames 0..NICE_STATIC_FRAMES-1, iters_first cut to
+    100): cells outside frame 0's frustum bit for bit unmoved, in-frustum
+    cells moved. Prints ms per tracker and mapper iteration by stage.
+    Returns the timings."""
+    import numpy as np
+    from pointnerf_slam_torch.outputs.mesher import read_ply
+    cfg = nice_config()
+    out = os.path.join(HERE, "output", "chip_smoke", "nice")
+    m, t, r = cfg["mapping"], cfg["tracking"], cfg["rendering"]
+    print(f"nice: room_bench 680x1200 with nice_slam.yaml, frames "
+          f"0..{NICE_FRAMES - 1}: c_dim {cfg['model']['c_dim']}, grid_len "
+          f"{cfg['grid_len']}, tracking {t['pixels']} x {t['iters']} "
+          f"(handle_dynamic {t['handle_dynamic']}), mapping {m['pixels']} x "
+          f"{m['iters']} every {m['every_frame']} (iters_first "
+          f"{m['iters_first']}), BA {m['BA']}, {m['keyframe_selection_method']}"
+          f", frustum {m['frustum_feature_selection']}, {r['N_samples']} + "
+          f"{r['N_surface']} samples, occupancy {cfg['occupancy']}; widths "
+          f"uncut", flush=True)
+    g0 = {}
+    slam, secs, _ = run_system(torch, cfg, "nice", NICE_FRAMES, output=out,
+                               grids0=g0)
+    shapes = {k: tuple(v.shape) for k, v in slam.c_grid.items()}
+    moved = {k: float((slam.c_grid[k] - g0[k]).abs().max()) for k in g0}
+    print(f"nice: {slam.n_img} frames in {secs:.1f} s; grids {shapes}; "
+          f"largest move {moved}", flush=True)
+    for k in ("grid_middle", "grid_fine", "grid_color"):
+        if not moved[k] > 0:
+            fail(f"nice: {k} did not move")
+    for rec in slam.frame_log:
+        if "map_losses" in rec and not torch.isfinite(
+                rec["map_losses"]).all():
+            fail(f"nice: mapping loss of frame {rec['idx']} not finite")
+    check_poses(slam, "nice", CAM_T_MAX, tracked_only=True)
+    mesh = os.path.join(out, "mesh", "final_mesh.ply")
+    if not os.path.exists(mesh):
+        fail(f"nice: no {mesh}")
+    verts, faces, _ = read_ply(mesh)
+    print(f"nice: {mesh}: {len(verts)} vertices, {len(faces)} faces",
+          flush=True)
+    if not len(faces):
+        fail("nice: the final mesh has no face")
+    nice_track_check(torch, slam)
+    ms = nice_timings(torch, slam)
+    print(f"nice: ms per iteration (CUDA events; {card()}): {ms}",
+          flush=True)
+
+    cfg = nice_config()
+    cfg["data"]["orbit"] = 0.0
+    cfg["coarse"] = False
+    cfg["mapping"].update(BA=False, iters_first=100)
+    cfg["tracking"]["gt_camera"] = True
+    g0 = {}
+    slam, secs, _ = run_system(torch, cfg, "nice static",
+                               NICE_STATIC_FRAMES, grids0=g0)
+    _, _, depth, _ = slam.frame_reader[0]
+    masks = slam._frustum_masks(0, torch.as_tensor(depth, device=slam.device))
+    for k in ("grid_middle", "grid_fine", "grid_color"):
+        mk = masks[k][..., 0] > 0
+        delta = (slam.c_grid[k] - g0[k]).abs().amax(-1)
+        out_moved = float(delta[~mk].max()) if (~mk).any() else 0.0
+        in_moved = float(delta[mk].max()) if mk.any() else 0.0
+        print(f"nice static: {k}: {int(mk.sum())} of {mk.numel()} cells in "
+              f"frame 0's frustum; largest move outside {out_moved:.3e}, "
+              f"inside {in_moved:.3e}", flush=True)
+        if not (mk.any() and (~mk).any()):
+            fail(f"nice static: {k}'s mask is trivial")
+        if out_moved != 0.0:
+            fail(f"nice static: {k} moved outside the frustum")
+        if not in_moved > 0:
+            fail(f"nice static: {k} did not move inside the frustum")
+    return ms
+
+
+def nice_frame_loss(torch, slam, cam7, color, depth, stride=8) -> float:
+    """The NICE tracker's own loss of camera cam7 on every stride-th pixel
+    of the frame's tracked crop: the first loss of a one-iteration
+    tracking step built from the system's configs, its pixel draw
+    replayed with that fixed batch, so two cameras compare without the
+    tracker's per-iteration pixel draws."""
+    import dataclasses
+    from pointnerf_slam_torch.engine.state import Draws
+    from pointnerf_slam_torch.engine.tracker import make_tracking_step
+    e = slam.ecfg
+    step = make_tracking_step(slam.model_cfg, slam.rcfg,
+                              dataclasses.replace(e, num_cam_iters=1))
+    jj, ii = torch.meshgrid(
+        torch.arange(e.ignore_edge_H, slam.H - e.ignore_edge_H, stride,
+                     device=slam.device),
+        torch.arange(e.ignore_edge_W, slam.W - e.ignore_edge_W, stride,
+                     device=slam.device), indexing="ij")
+    idx = (jj * slam.W + ii).reshape(-1)
+    return float(step(slam.decoder, cam7, color, depth, slam.bound,
+                      Draws(replay=[idx]), slam.c_grid)[2])
+
+
+def nice_track_check(torch, slam, rounds=20):
+    """The NICE tracker at its own budget (tracking.pixels rays x
+    tracking.iters iterations a call), `rounds` calls from frame 0 shifted
+    2 cm along +y, each from the last call's best camera. Judged on the
+    tracker's own loss over one fixed batch (every 8th pixel of the
+    tracked crop, nice_frame_loss): the tracked camera must close at
+    least half the gap between the shifted start's loss and gt's (a
+    tracker that does nothing closes none). The translation error is
+    printed, not bounded: on this map the reference's NICE tracker does
+    not close the shift either (scripts/nice_track_witness.py: from the
+    frame-10 checkpoint of this configuration, both packages' trackers on
+    the same pixel draws end 20 rounds 12-19 mm off gt at frames 0 and
+    10)."""
+    import numpy as np
+    from pointnerf_slam_torch.engine.state import Draws
+    _, color, depth, gt0 = slam.frame_reader[0]
+    c, d, _ = slam._upload_frame(0, color, depth)
+    d = slam._supervising_depth(0, d)
+    start = np.asarray(gt0, np.float64).copy()
+    start[1, 3] += SHIFT_M
+    draws = Draws(torch.Generator(device=slam.device).manual_seed(7))
+    best = slam._cam7(start)
+    for _ in range(rounds):
+        best = slam.tracking_step(slam.decoder, best, c, d, slam.bound,
+                                  draws, slam.c_grid)[0]
+    l_gt, l0, l1 = (nice_frame_loss(torch, slam, cam, c, d) for cam in (
+        slam._cam7(gt0), slam._cam7(start), best))
+    err = float(torch.linalg.norm(best[4:] - slam._cam7(gt0)[4:]))
+    bound = l0 - 0.5 * (l0 - l_gt)
+    print(f"nice: track check: frame 0 from +{SHIFT_M * 100:.0f} cm, "
+          f"{rounds} x {slam.ecfg.num_cam_iters} iterations of "
+          f"{slam.ecfg.tracking_pixels} rays: loss on every 8th pixel at gt "
+          f"{l_gt:.2f}, start {l0:.2f}, tracked {l1:.2f} (bound "
+          f"{bound:.2f}); t err {SHIFT_M * 1000:.1f} -> {err * 1000:.3f} mm",
+          flush=True)
+    if not (l0 > l_gt and l1 <= bound):
+        fail(f"nice: track check: loss {l0} -> {l1} (gt {l_gt})")
+
+
+def phase_runpy(torch, readers):
+    """python -m pointnerf_slam_torch.run on the readers phase's TUM
+    fixture: a config that inherits configs/TUM_RGBD/tum_imap.yaml with the
+    fixture's bound and cut iterations (15 mapping iterations a frame, 10
+    tracking, no colour refine or eval mesh: the profiler records every
+    op, ~2 GB of trace at 150 / 50),
+    --input_folder naming the fixture, --n_frames RUNPY_FRAMES, --profile:
+    the run exits 0 and the profiler wrote a trace file."""
+    import glob
+    import yaml
+    root = os.path.join(HERE, "output", "chip_smoke", "runpy")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    conf = os.path.join(root, "tum_fixture.yaml")
+    with open(conf, "w") as fh:
+        yaml.safe_dump({
+            "inherit_from": os.path.join(HERE, TUM_CFG),
+            "mapping": {"bound": [list(map(float, b)) for b in
+                                  readers.cfg["mapping"]["bound"]],
+                        "iters_first": 15, "iters": 15,
+                        "color_refine": False},
+            "tracking": {"iters": 10},
+            "meshing": {"eval_rec": False},
+            "data": {"output": os.path.join(root, "out")}}, fh)
+    trace = os.path.join(root, "trace")
+    cmd = [sys.executable, "-m", "pointnerf_slam_torch.run", conf,
+           "--input_folder", readers.cfg["data"]["input_folder"],
+           "--n_frames", str(RUNPY_FRAMES), "--profile", trace]
+    t0 = time.time()
+    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=RUNPY_TIMEOUT)
+    secs = time.time() - t0
+    tail = "\n".join(res.stdout.splitlines()[-4:])
+    traces = glob.glob(os.path.join(trace, "*.pt.trace.json"))
+    size = sum(os.path.getsize(f) for f in traces)
+    print(f"run.py: {' '.join(cmd[1:])}: exit {res.returncode} in "
+          f"{secs:.1f} s; traces {[os.path.basename(f) for f in traces]} "
+          f"({size / 1e6:.1f} MB)\n{tail}", flush=True)
+    if res.returncode:
+        fail(f"run.py: exit {res.returncode}: {res.stderr[-2000:]}")
+    if not traces or not size:
+        fail(f"run.py: no profiler trace in {trace}")
+    return secs
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print("chip_smoke: takes no arguments", file=sys.stderr)
@@ -2098,10 +2459,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    print(smi.stdout.strip())
+    print(card())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from pointnerf_slam_torch.ops import build
@@ -2151,8 +2509,12 @@ def main() -> int:
              ("resume", lambda: phase_resume(torch, weak), k1),
              ("dynamic", lambda: phase_dynamic(torch),
               ("p1_sigma", "fused_vg_mapper") + mk),
+             ("outputs", lambda: phase_outputs(torch, weak), ()),
              ("superpoint", lambda: phase_superpoint(torch), ()),
-             ("readers", lambda: phase_readers(torch), k1))
+             ("readers", lambda: phase_readers(torch), k1),
+             ("nice", lambda: phase_nice(torch), ()))
+    # the paths the reference keeps off every kernel (render_img, NICE)
+    none = ("outputs", "nice")
     for label, run, must in paths:
         F.reset_launches()
         out = run()
@@ -2161,6 +2523,11 @@ def main() -> int:
         for k in must:
             if got[k] <= 0:
                 fail(f"kernel {k} never launched on the {label} path")
+        if label in none:
+            if any(got.values()):
+                fail(f"the {label} path launched kernels: {got}")
+            for k in by_path:
+                by_path[k][label] = 0
         for k in counts:
             counts[k] += got[k]
             if got[k]:
@@ -2180,7 +2547,12 @@ def main() -> int:
             if not out[1] and any(got[k] for k in k1):
                 fail(f"superpoint: K1/K2 launched without a bootstrap: "
                      f"{got}")
+        elif label == "outputs":
+            render_ms = out
+        elif label == "nice":
+            nice_ms = out
         elif label == "readers":
+            readers = out
             want = tum_schedule(out.cfg, TUM_FRAMES, track_checks=1)
             if any(got[k] != v for k, v in want.items()):
                 fail(f"readers: K1/K2 launches {got}, the schedule gives "
@@ -2191,6 +2563,11 @@ def main() -> int:
     for k, c in counts.items():
         if c <= 0:
             fail(f"kernel {k} never launched on the main path")
+    runpy_s = phase_runpy(torch, readers)
+    print(f"new phases: render_img {render_ms:.3f} ms per 680x1200 frame; "
+          f"NICE ms per iteration {nice_ms}; run.py {runpy_s:.1f} s "
+          f"(launches of the run.py phase are its subprocess's, not "
+          f"counted here)", flush=True)
     phase_tools(slam, weak)
     phase_track_check(torch, slam)
     phase_kernels_map(torch, slam, report)

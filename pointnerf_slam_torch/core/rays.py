@@ -28,6 +28,15 @@ def rays_from_uv(i, j, c2w, fx, fy, cx, cy):
     return rays_o, rays_d
 
 
+def get_rays(H: int, W: int, fx, fy, cx, cy, c2w):
+    """Rays of the full image, (H, W, 3) each, under pose c2w (3, 4)."""
+    j, i = torch.meshgrid(
+        torch.arange(H, dtype=torch.float32, device=c2w.device),
+        torch.arange(W, dtype=torch.float32, device=c2w.device),
+        indexing="ij")
+    return rays_from_uv(i, j, c2w, fx, fy, cx, cy)
+
+
 def sample_uv_uniform(gen: torch.Generator, W: int, H0: int, H1: int,
                       W0: int, W1: int, n: int) -> torch.Tensor:
     """n flat full-image indices, uniform with replacement over the crop
@@ -47,11 +56,12 @@ def sample_uv_valid(gen: torch.Generator, valid_mask: torch.Tensor,
     instead of a categorical over HW logits. Returns (indices, n_valid)."""
     m = valid_mask.reshape(-1)
     n_valid = m.sum()
-    u = torch.rand((n,), generator=gen, device=gen.device)
+    # drawn on the generator's device, used on the mask's
+    u = torch.rand((n,), generator=gen, device=gen.device).to(m.device)
     r = (u * n_valid.clamp(min=1)).to(torch.int64).clamp(
         max=int(m.shape[0]) - 1)
     idx_any = torch.randint(0, m.shape[0], (n,), generator=gen,
-                            device=gen.device)
+                            device=gen.device).to(m.device)
     return valid_index_of_rank(m, r, idx_any), n_valid
 
 

@@ -1,5 +1,6 @@
 """Single-controller SLAM system: the iMAP* path with sensor depth or,
-in weak-depth (RGB-only) mode, with the sparse front-end's pseudo-depth.
+in weak-depth (RGB-only) mode, with the sparse front-end's pseudo-depth;
+and NICE mode (the feature-grid stack, configs/nice_slam.yaml).
 
 Per-frame schedule (the JAX reference's engine/system.py):
   idx == 0: adopt the gt pose, insert the first keyframe; sensor-depth
@@ -31,6 +32,21 @@ Per-frame schedule (the JAX reference's engine/system.py):
             has none; keyframes supervise with their pseudo-depth slots.
   final frame: colour refine (5 outers, doubled window).
 
+NICE (`nice: True`): the grids (models/grids.init_grids, from a generator
+seeded seed + 7, over the scaled bound) beside the NICEDecoder; the
+tracker renders the 'color' stage; each mapping call (one outer; the
+first with iters_first and lr_first_factor) runs the stage schedule
+middle / fine / color split by mapping.middle_iter_ratio and
+fine_iter_ratio (a coarse segment first with `coarse`), each stage with
+its own learning rates (mapping.stage), cameras bundle-adjusted only at
+'color'. mapping.keyframe_selection_method 'overlap' scores every
+keyframe by the share of the current frame's back-projected depth
+samples it sees and draws the window from those that see any (the same
+np_rng draws as the reference; 'global' otherwise), and
+frustum_feature_selection masks each grid's update to the current
+frame's frustum (models/grids.make_frustum_mask_fn; never the coarse
+grid).
+
 Frames go to the device once each, quantised to u8 colour and u16 depth
 (step depth_max / 65535) as the keyframe store holds them.
 
@@ -46,9 +62,8 @@ Datasets: every reader of io/datasets.py (synthetic, replica, scannet,
 tumrgbd, cofusion, azure). Weak mode's front-end takes SuperPoint where
 `superpoint_weights` names a checkpoint that exists, else Harris.
 
-Not ported yet (each raises NotImplementedError): NICE mode (ROADMAP
-Queue 1 item 11), multi-device mapping (item 11, parallel/), 'overlap'
-keyframe selection and frustum feature masks (item 11).
+Not ported yet (raises NotImplementedError): multi-device mapping
+(ROADMAP Queue 1 item 11, parallel/).
 """
 
 from __future__ import annotations
@@ -58,6 +73,7 @@ import time
 import numpy as np
 import torch
 
+from ..core.se3 import camera_from_tensor
 from ..core.se3_np import (camera_from_tensor_np, interp_c2w_np,
                            tensor_from_camera_np, to_homogeneous_np)
 from ..io.config import load_config
@@ -85,30 +101,36 @@ class PointNeRFSLAM:
         self.scale = cfg["scale"]
         self.output = output or cfg["data"]["output"]
         self.verbose = cfg.get("verbose", False)
-        self.mesher = None             # outputs.attach_outputs wires both
+        # outputs.attach_outputs wires the logger, the mesher and the
+        # writers (render panels, match panels, trajectory, loss curves)
+        self.mesher = None
         self.logger = None
-        if cfg.get("nice", False):
-            raise NotImplementedError(
-                "NICE mode is not ported yet (ROADMAP Queue 1 item 11)")
+        self.visualizer = None
+        self.tracking_visualizer = None
+        self.match_visualizer = None
+        self.aux_visualizers = []
         want = (cfg.get("parallel", {}) or {}).get("data_devices", "auto")
         if want != "auto" and int(want) > 1:
             raise NotImplementedError(
                 "multi-device mapping is not ported yet (ROADMAP Queue 1 "
-                "item 11, parallel/)")
-        if cfg["mapping"]["keyframe_selection_method"] != "global" \
-                or cfg["mapping"].get("frustum_feature_selection", False):
-            raise NotImplementedError(
-                "'overlap' keyframe selection and frustum masks are not "
-                "ported yet (ROADMAP Queue 1 item 11)")
+                "item 11, parallel/: the one module left, next slice)")
 
         self._update_cam()
         self._load_bound()
         seed = cfg.get("seed", 1219)
-        self.model_cfg, make = get_model(cfg)
-        # init on the CPU from a seeded generator, so CPU and CUDA runs
-        # start from the same weights
+        self.nice = bool(cfg.get("nice", False))
+        self.model_cfg, make = get_model(cfg, nice=self.nice)
+        # init on the CPU from seeded generators, so CPU and CUDA runs
+        # start from the same weights and grids
         self.decoder = make(torch.Generator().manual_seed(seed)).to(
             self.device)
+        self.c_grid = {}
+        if self.nice:
+            from ..models.grids import init_grids
+            self.c_grid = init_grids(
+                torch.Generator().manual_seed(seed + 7), cfg,
+                np.array(cfg["mapping"]["bound"], np.float32) * self.scale,
+                self.device)
         self.rcfg = RenderConfig.from_cfg(cfg)
         self.ecfg = EngineConfig.from_cfg(cfg, self.H, self.W, self.fx,
                                           self.fy, self.cx, self.cy)
@@ -122,6 +144,9 @@ class PointNeRFSLAM:
         self.keyframes = KeyframeBuffer(cap, self.H, self.W, self.device)
         self.max_window = self.ecfg.mapping_window_size + 1   # + current
         self._mapper_steps = {}
+        self._use_grid_masks = bool(self.nice
+                                    and self.ecfg.frustum_feature_selection)
+        self._frustum_mask_fns = {}
         self.tracking_step = make_tracking_step(self.model_cfg, self.rcfg,
                                                 self.ecfg)
         self.estimate_c2w_list = np.zeros((self.n_img, 4, 4), np.float32)
@@ -208,22 +233,119 @@ class PointNeRFSLAM:
         self._frame_dev = (idx, c, dd, u8)
         return c, dd, u8
 
-    def _get_mapper_step(self, max_frames: int, outer_fused: bool):
-        key = (max_frames, outer_fused)
+    def _get_mapper_step(self, max_frames: int, outer_fused: bool,
+                         stage: str = "color", lr_factor: float = 1.0):
+        key = (max_frames, outer_fused, stage, lr_factor)
         if key not in self._mapper_steps:
+            grid_lrs = dec_lr = None
+            if self.nice:
+                st = self.cfg["mapping"]["stage"][stage]
+                grid_lrs = {name: st[f"{name[5:]}_lr"] * lr_factor
+                            for name in self.c_grid}
+                dec_lr = st["decoders_lr"] * lr_factor
             self._mapper_steps[key] = make_mapper_step(
                 self.model_cfg, self.rcfg, self.ecfg, max_frames,
-                outer_fused=outer_fused)
+                outer_fused=outer_fused, stage=stage, grid_lrs=grid_lrs,
+                decoders_lr=dec_lr)
         return self._mapper_steps[key]
 
-    def _select_window(self, refine: bool):
-        """'global' selection: random keyframes + the last one."""
+    def _stage_schedule(self, num_iters: int):
+        """[(stage, iterations)]: one 'color' stage for iMAP*; NICE splits
+        middle / fine / color by middle_iter_ratio and fine_iter_ratio, with
+        a coarse segment (a third of the iterations) first with `coarse`."""
+        if not self.nice:
+            return [("color", num_iters)]
+        m = int(num_iters * self.ecfg.middle_iter_ratio)
+        f = int(num_iters * self.ecfg.fine_iter_ratio) - m
+        c = num_iters - m - f
+        stages = [(s, n) for s, n in
+                  (("middle", m), ("fine", f), ("color", c)) if n > 0]
+        if self.cfg["coarse"] and "grid_coarse" in self.c_grid:
+            stages = [("coarse", max(num_iters // 3, 1))] + stages
+        return stages
+
+    def _select_window(self, refine: bool, cur_depth=None, cur_c2w=None):
+        """Window slots: random keyframes ('global') or, with 'overlap',
+        drawn from those that see the current frame; plus the last one."""
         wsize = self.ecfg.mapping_window_size * (2 if refine else 1)
         n_kf = len(self.keyframes)
         if n_kf == 0:
             return []
-        chosen = random_select(n_kf - 1, wsize - 2, self.np_rng)
+        if self.ecfg.keyframe_selection_method == "overlap" and n_kf > 1:
+            chosen = self._overlap_select(cur_depth, cur_c2w, n_kf - 1,
+                                          wsize - 2)
+        else:
+            chosen = random_select(n_kf - 1, wsize - 2, self.np_rng)
         return sorted(set(int(c) for c in chosen) | {n_kf - 1})
+
+    def _overlap_scores(self, pts: torch.Tensor, n: int) -> np.ndarray:
+        """(n,) share of the world points pts (M, 3) that project inside
+        each of the first n keyframes' images, 20 pixels from the edge and
+        in front of the camera."""
+        c2w = camera_from_tensor(self.keyframes.est_c2w[:n])      # (n, 3, 4)
+        bottom = torch.tensor([0.0, 0.0, 0.0, 1.0],
+                              device=c2w.device).expand(n, 1, 4)
+        w2c = torch.linalg.inv(torch.cat([c2w, bottom], 1))
+        pc = torch.einsum("kij,mj->kmi", w2c[:, :3, :3], pts) \
+            + w2c[:, None, :3, 3]
+        zz = -pc[..., 2]
+        zc = zz.clamp(min=1e-5)
+        u = pc[..., 0] / zc * self.fx + self.cx
+        v = -pc[..., 1] / zc * self.fy + self.cy
+        edge = 20
+        inside = ((zz > 1e-5) & (u > edge) & (u < self.W - edge)
+                  & (v > edge) & (v < self.H - edge))
+        return inside.to(torch.float32).mean(1).cpu().numpy()
+
+    def _overlap_select(self, depth, c2w, n_candidates, k, n_samples=16,
+                        pixels=100):
+        """'overlap' keyframe selection: `pixels` valid pixels of the
+        current depth drawn with np_rng, n_samples points each from 0.8 d
+        to d + 0.5 along their rays at pose c2w (4, 4); keyframes scored
+        by the share of those points they see; k drawn (np_rng
+        permutation) from the keyframes with a positive score, in
+        descending score order, else k at random."""
+        depth_np = (depth.cpu().numpy() if torch.is_tensor(depth)
+                    else np.asarray(depth))
+        valid = np.argwhere(depth_np > 0.01)
+        if len(valid) == 0:
+            return random_select(n_candidates, k, self.np_rng)
+        sel = valid[self.np_rng.integers(0, len(valid), pixels)]
+        d = depth_np[sel[:, 0], sel[:, 1]]
+        i = sel[:, 1].astype(np.float64)
+        j = sel[:, 0].astype(np.float64)
+        dirs = np.stack([(i - self.cx) / self.fx, -(j - self.cy) / self.fy,
+                         -np.ones_like(i)], -1)
+        rays_d = dirs @ c2w[:3, :3].T
+        t = np.linspace(0.0, 1.0, n_samples)
+        z = (d[:, None] * 0.8) * (1 - t) + (d[:, None] + 0.5) * t
+        pts = (c2w[:3, 3] + rays_d[:, None, :] * z[..., None]).reshape(-1, 3)
+        scores = self._overlap_scores(
+            torch.as_tensor(pts, dtype=torch.float32, device=self.device),
+            n_candidates)
+        order = [s for s in np.argsort(scores)[::-1] if scores[s] > 0]
+        return list(self.np_rng.permutation(np.array(order, np.int64))[:k]) \
+            if order else random_select(n_candidates, k, self.np_rng)
+
+    def _frustum_masks(self, idx, cur_depth) -> dict:
+        """{grid name: (Dx, Dy, Dz, 1) mask} of frame idx's frustum at its
+        estimated pose (the coarse grid all ones)."""
+        from ..models.grids import make_frustum_mask_fn
+        c2w = torch.as_tensor(self.estimate_c2w_list[idx],
+                              device=self.device)
+        masks = {}
+        for name, g in self.c_grid.items():
+            if name == "grid_coarse":
+                masks[name] = torch.ones(g.shape[:3] + (1,),
+                                         device=self.device)
+                continue
+            if name not in self._frustum_mask_fns:
+                self._frustum_mask_fns[name] = make_frustum_mask_fn(
+                    g.shape[:3], self.H, self.W, self.fx, self.fy, self.cx,
+                    self.cy)
+            masks[name] = self._frustum_mask_fns[name](self.bound, c2w,
+                                                       cur_depth)
+        return masks
 
     def _window(self, slots, max_frames, cur_color_u8, cur_depth, cur_cam):
         kf_color, kf_depth, kf_pseudo, kf_cams = self.keyframes.gather_window(
@@ -291,18 +413,30 @@ class PointNeRFSLAM:
 
     # -- mapping ----------------------------------------------------------
     def _map_frame(self, idx, color, sensor_depth, num_iters, outer_iters,
-                   refine=False):
+                   refine=False, lr_factor: float = 1.0):
         t0 = self._clock()
         max_frames = (self.ecfg.mapping_window_size * 2 + 1 if refine
                       else self.max_window)
+        if (self.ecfg.keyframe_selection_method == "overlap"
+                or self._use_grid_masks):
+            # these read the frame's pose on the host
+            self._commit_pending_pose()
         cur_cam = self._cam7_current(idx)
         _, sensor_dev, cur_u8 = self._upload_frame(idx, color, sensor_depth)
         cur_depth = self._supervising_depth(idx, sensor_dev)
+        grid_masks = (self._frustum_masks(idx, cur_depth)
+                      if self._use_grid_masks else None)
         do_ba = self.ecfg.BA and len(self.keyframes) > 4
         self._log(idx, "ba", do_ba)
-        if self.ecfg.fused_outer and not do_ba and outer_iters > 1:
-            wins = [self._window(self._select_window(refine), max_frames,
-                                 cur_u8, cur_depth, cur_cam)
+
+        def select():
+            return self._select_window(refine, cur_depth,
+                                       self.estimate_c2w_list[idx])
+
+        if (self.ecfg.fused_outer and not self.nice and not do_ba
+                and outer_iters > 1):
+            wins = [self._window(select(), max_frames, cur_u8, cur_depth,
+                                 cur_cam)
                     for _ in range(outer_iters)]
             stacked = [torch.stack([w[k] for w in wins]) for k in range(4)]
             ba_o = torch.zeros_like(stacked[3])
@@ -313,21 +447,28 @@ class PointNeRFSLAM:
             self.mapping_first_frame_done = True
             self._tick("mapping", t0, idx)
             return
-        step_fn = self._get_mapper_step(max_frames, False)
         for _ in range(outer_iters):
-            slots = self._select_window(refine)
+            slots = select()
             colors, depths, cams, valid = self._window(
                 slots, max_frames, cur_u8, cur_depth, cur_cam)
-            ba_mask = torch.zeros_like(valid)
+            ba_all = torch.zeros_like(valid)
             if do_ba:
-                ba_mask[: len(slots)] = True
-                ba_mask[-1] = True
+                ba_all[: len(slots)] = True
+                ba_all[-1] = True
                 if slots:
-                    ba_mask[int(np.argmin(np.asarray(slots)))] = False
-            cams_out, losses = step_fn(self.decoder, colors, depths, cams,
+                    ba_all[int(np.argmin(np.asarray(slots)))] = False
+            for stage, n_iters in self._stage_schedule(num_iters):
+                # NICE bundle-adjusts only at its colour stage
+                ba_mask = (ba_all if stage == "color" or not self.nice
+                           else torch.zeros_like(valid))
+                step_fn = self._get_mapper_step(max_frames, False, stage,
+                                                lr_factor)
+                cams, losses = step_fn(self.decoder, colors, depths, cams,
                                        valid, ba_mask, self.bound,
-                                       self.draws, num_iters)
-            self._log(idx, "map_losses", losses)
+                                       self.draws, n_iters, self.c_grid,
+                                       grid_masks)
+                self._log(idx, "map_losses", losses)
+            cams_out = cams
             if do_ba:
                 for w, slot in enumerate(slots):
                     self.keyframes.est_c2w[slot] = cams_out[w]
@@ -357,7 +498,8 @@ class PointNeRFSLAM:
                                                      sensor_depth)
         best_cam, best_loss, first_loss, _ = self.tracking_step(
             self.decoder, self._cam7(init), color_dev,
-            self._supervising_depth(idx, depth_dev), self.bound, self.draws)
+            self._supervising_depth(idx, depth_dev), self.bound, self.draws,
+            self.c_grid)
         gt_cam = self._cam7(gt_c2w)
         self._log(idx, "track_first", first_loss)
         self._log(idx, "track_best", best_loss)
@@ -365,6 +507,12 @@ class PointNeRFSLAM:
         self._log(idx, "t_err_m", torch.linalg.norm(gt_cam[4:]
                                                     - best_cam[4:]))
         self._pending_pose = (idx, best_cam)
+        if self.tracking_visualizer is not None:
+            # the panel renders at the committed pose, which the mapper
+            # then takes from the host table as well (as the reference)
+            self._commit_pending_pose()
+            self.tracking_visualizer.vis(self, idx, sensor_depth, color,
+                                         self.estimate_c2w_list[idx])
         self._tick("tracking", t0, idx)
 
     def _commit_pending_pose(self):
@@ -382,8 +530,11 @@ class PointNeRFSLAM:
         if not self.frame_log or self.frame_log[-1]["idx"] != idx:
             self.frame_log.append({"idx": idx})
         rec = self.frame_log[-1]
-        if key == "map_losses" and key in rec:
-            value = torch.cat([rec[key], value])
+        if key == "map_losses":
+            # one mapper event; outputs.draw.loss_log splits them again
+            rec["map_sizes"] = rec.get("map_sizes", []) + [value.numel()]
+            if key in rec:
+                value = torch.cat([rec[key], value])
         rec[key] = value
 
     # -- keyframes --------------------------------------------------------
@@ -408,7 +559,9 @@ class PointNeRFSLAM:
             self.estimate_c2w_list[0] = gt_c2w
             self._maybe_insert_keyframe(0, color, sensor_depth)
             if not e.weak_depth:
-                self._map_frame(0, color, sensor_depth, e.iters_first, 1)
+                self._map_frame(0, color, sensor_depth, e.iters_first, 1,
+                                lr_factor=self.cfg["mapping"][
+                                    "lr_first_factor"])
             return
         if e.gt_camera:
             self.estimate_c2w_list[idx] = gt_c2w
@@ -438,10 +591,13 @@ class PointNeRFSLAM:
                 self._map_frame(idx, color, sensor_depth, e.iters, 5,
                                 refine=True)
             elif e.weak_depth and not self.mapping_first_frame_done:
-                self._map_frame(idx, color, sensor_depth, e.iters_first, 1)
+                self._map_frame(idx, color, sensor_depth, e.iters_first, 1,
+                                lr_factor=self.cfg["mapping"][
+                                    "lr_first_factor"])
             else:
+                outer = 1 if self.nice else 3
                 self._map_frame(idx, color, sensor_depth,
-                                max(e.iters // 3, 1), 3)
+                                max(e.iters // outer, 1), outer)
             # the mapper's work is queued, not waited for: read the next
             # tracked frame on the host while the device maps, then queue
             # its feature extraction behind the mapper
@@ -502,7 +658,11 @@ class PointNeRFSLAM:
             est[idx] = est[idx - 1]
         field_ctx = None
         if self.mapping_first_frame_done:
-            field_ctx = dict(decoder=self.decoder, c2w_pred=est[idx],
+            decoder = self.decoder
+            if self.nice:
+                def decoder(x):
+                    return self.decoder(x, self.c_grid, "color", self.bound)
+            field_ctx = dict(decoder=decoder, c2w_pred=est[idx],
                              bound=self.bound, rcfg=self.rcfg)
         ref_idx = self.frontend.prev["frame_idx"] \
             if self.frontend.prev is not None else -1
@@ -539,6 +699,13 @@ class PointNeRFSLAM:
                 self.logger.maybe_log(self, idx)
             if self.mesher is not None:
                 self.mesher.maybe_mesh(self, idx)
+            if self.visualizer is not None and idx > 0:
+                self.visualizer.vis(self, idx, depth, color,
+                                    self.estimate_c2w_list[idx])
+            if self.match_visualizer is not None:
+                self.match_visualizer.vis(self, idx)
+            for v in self.aux_visualizers:
+                v.vis(self, idx)
             if on_frame is not None:
                 on_frame(self, idx)
         if self.mesher is not None:

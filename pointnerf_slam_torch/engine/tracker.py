@@ -21,10 +21,13 @@ Three paths, chosen as the JAX reference's engine/tracker.py chooses
     computes the loss in torch; autograd chains K4's ray gradients to the
     camera.
   - plain (`megakernel: off`, or a decoder or sampling the kernels do not
-    cover): render.renderer.render_rays on the live camera with autograd
-    to it, one pixel batch per iteration; the decoder runs through
-    models.decoders.decoder_apply, so MLPConfig.fused evaluates it with
-    K5 and backpropagates with K6 (dx only: no parameter gradient).
+    cover, NICE among them): render.renderer.render_rays on the live
+    camera with autograd to it, one pixel batch per iteration (and with
+    rendering.perturb > 0 its stratified and importance uniforms); the
+    iMAP* decoder runs through models.decoders.decoder_apply, so
+    MLPConfig.fused evaluates it with K5 and backpropagates with K6 (dx
+    only: no parameter gradient); NICE renders its field at the 'color'
+    stage with the grids (c_grid) as constants.
 In each the camera gradient reaches the pose through ray generation by
 autograd, and the candidate kept for a loss is the PRE-step camera (the one
 the loss was evaluated at). `seperate_LR`: the quaternion gets lr * 0.2.
@@ -40,7 +43,7 @@ import torch
 from ..core.rays import (gather_pixels, rays_from_uv, sample_uv_uniform,
                          sample_uv_valid)
 from ..core.se3 import camera_from_tensor
-from ..models.decoders import decoder_apply
+from ..models.decoders import NICEConfig, apply_nice, decoder_apply
 from ..ops.fused_vg import (fused_vg_loss, make_fused_vg_split,
                             supports_fused_vg, supports_megakernel)
 from ..ops.megakernel import make_fused_render
@@ -73,9 +76,17 @@ def make_tracking_step(model_cfg, rcfg, ecfg: EngineConfig):
             t0 = torch.zeros(n_rays, rcfg.N_samples, device=ro.device)
             return fused_render(params, ro, rd, gt_d, t0, bound)[:3]
     elif not use_mega:
-        def render(params, ro, rd, gt_d, bound):
+        def render(params, ro, rd, gt_d, bound, c_grid=None, pert=None):
+            t_rand, u_imp = pert or (None, None)
+            if isinstance(model_cfg, NICEConfig):
+                return render_rays(
+                    lambda x, g, st, b: apply_nice(params, model_cfg, x, g,
+                                                   st, b),
+                    rcfg, ro, rd, bound, gt_d, c_grid=c_grid, stage="color",
+                    t_rand=t_rand, u_imp=u_imp)[:3]
             return render_rays(lambda x: decoder_apply(model_cfg, params, x),
-                               rcfg, ro, rd, bound, gt_d)[:3]
+                               rcfg, ro, rd, bound, gt_d, t_rand=t_rand,
+                               u_imp=u_imp)[:3]
     else:
         prep, main = make_fused_vg_split(
             rcfg, "tracker", ecfg.w_color_loss_t,
@@ -84,8 +95,12 @@ def make_tracking_step(model_cfg, rcfg, ecfg: EngineConfig):
         if ecfg.num_cam_iters % K:
             K = 1
 
-    def render_loss(params, ro, rd, gt_d, gt_c, bound):
-        dep, var, col = render(params, ro, rd, gt_d, bound)
+    def render_loss(params, ro, rd, gt_d, gt_c, bound, c_grid=None,
+                    pert=None):
+        if use_mega:
+            dep, var, col = render(params, ro, rd, gt_d, bound)
+        else:
+            dep, var, col = render(params, ro, rd, gt_d, bound, c_grid, pert)
         var = var.detach()
         if ecfg.handle_dynamic:
             tmp = (gt_d - dep).abs() / torch.sqrt(var + 1e-10)
@@ -102,9 +117,9 @@ def make_tracking_step(model_cfg, rcfg, ecfg: EngineConfig):
         return loss
 
     def tracking_step(decoder, cam_tensor, color, depth_sup, bound,
-                      draws: Draws):
-        """Refine one camera (7,). Returns (best_cam, best_loss,
-        first_loss, losses (num_cam_iters,))."""
+                      draws: Draws, c_grid: dict | None = None):
+        """Refine one camera (7,) (NICE: against the grids c_grid). Returns
+        (best_cam, best_loss, first_loss, losses (num_cam_iters,))."""
         if ecfg.weak_depth:
             valid = depth_sup > 0.01
 
@@ -114,7 +129,12 @@ def make_tracking_step(model_cfg, rcfg, ecfg: EngineConfig):
             def sample(gen):
                 return sample_uv_uniform(gen, W, He, H - He, We, W - We,
                                          n_rays)
-        params = {k: v.detach() for k, v in decoder.named_parameters()}
+        if isinstance(model_cfg, NICEConfig):
+            params = {n: {k: v.detach() for k, v in sub.items()}
+                      for n, sub in decoder.params().items()}
+            c_grid = {k: v.detach() for k, v in c_grid.items()}
+        else:
+            params = {k: v.detach() for k, v in decoder.named_parameters()}
         cam0 = cam_tensor.detach().to(torch.float32)
         quad = cam0[:4].clone().requires_grad_(True)
         trans = cam0[4:].clone().requires_grad_(True)
@@ -142,7 +162,16 @@ def make_tracking_step(model_cfg, rcfg, ecfg: EngineConfig):
                 cam = torch.cat([quad, trans])
                 ro, rd = rays_of(cam)
                 if per_iter:
-                    loss = render_loss(params, ro, rd, gt_d, gt_c, bound)
+                    pert = None
+                    if rcfg.perturb > 0 and not use_mega:
+                        pert = draws.take(lambda g: (
+                            torch.rand(n_rays, rcfg.N_samples, generator=g,
+                                       device=g.device),
+                            torch.rand(n_rays, rcfg.N_importance,
+                                       generator=g, device=g.device)
+                            if rcfg.N_importance > 0 else None))
+                    loss = render_loss(params, ro, rd, gt_d, gt_c, bound,
+                                       c_grid, pert)
                 else:
                     loss = fused_vg_loss(main, decoder, ro, rd, gt_d, gt_c,
                                          ones, None, z2, bound)[0]

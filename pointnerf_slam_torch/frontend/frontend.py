@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ..engine.state import Draws
+from ..utils.device import resolve_device
 from .features import HarrisExtractor, SuperPointExtractor
 from .mapstore import _KF_REGISTRY, KeyFrame, Map, MapPoint
 from .matching import match_two_way
@@ -89,11 +90,13 @@ def _np(x):
 
 
 class SparseFrontend:
-    def __init__(self, cfg, H, W, fx, fy, cx, cy, device="cpu",
+    def __init__(self, cfg, H, W, fx, fy, cx, cy, device=None,
                  extractor=None, draws: Optional[Draws] = None):
+        """device: the card unless the caller asks for the CPU
+        (utils.device.resolve_device)."""
         self.H, self.W = H, W
         self.fx, self.fy, self.cx, self.cy = fx, fy, cx, cy
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.depth_patch = cfg.get("depth_patch", 5)
         self.nn_thresh = cfg.get("nn_thresh", 0.7)
         self.max_kps = cfg.get("num_features", 1000)

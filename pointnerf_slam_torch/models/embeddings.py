@@ -1,4 +1,5 @@
-"""Learnable Gaussian-Fourier positional embedding: sin(x @ B).
+"""Positional embeddings: the learnable Gaussian-Fourier sin(x @ B) and
+the classic NeRF sin/cos bands.
 
 B ~ N(0, 1) * 25 with 93 columns for the iMAP* decoder. The product x @ B
 stays in true float32: B's scale of 25 turns bf16 input rounding into
@@ -38,3 +39,19 @@ class FourierEmbedding(nn.Module):
             num_input_channels, mapping_size, generator=generator,
             device=device) * scale)
 
+
+
+def nerf_positional_embedding(x: torch.Tensor, multires: int,
+                              log_sampling: bool = True) -> torch.Tensor:
+    """[x, sin(f_1 x), cos(f_1 x), ...] over `multires` frequency bands
+    (powers of two, or linearly spaced from 1 to 2^(multires-1)).
+    (N, d) -> (N, d * (2 * multires + 1))."""
+    if log_sampling:
+        freqs = 2.0 ** torch.linspace(0.0, multires - 1, multires)
+    else:
+        freqs = torch.linspace(2.0 ** 0.0, 2.0 ** (multires - 1), multires)
+    outs = [x]
+    for f in freqs.tolist():
+        outs.append(torch.sin(x * f))
+        outs.append(torch.cos(x * f))
+    return torch.cat(outs, dim=-1)

@@ -6,7 +6,8 @@ layout, so either package resumes from the other's:
   keyframe_list (frame indices), kf_est_c2w, kf_gt_c2w (the keyframe
   store's whole (capacity, 7) camera tensors);
   the decoder as param_{i} in the reference's tree-flatten order
-  (models.decoders.tree_order) and n_params;
+  (models.decoders.tree_order) and n_params; NICE's grids as grid_{i} in
+  sorted name order (coarse, color, fine, middle) and n_grids;
   weak mode's pseudo-depths, sparse: pseudo_idx_{i} (frame), pseudo_nz_{i}
   (flat pixel indices > 0), pseudo_val_{i}, and n_pseudo;
   with the front-end: its scale anchors fe_median_gt_depth,
@@ -65,6 +66,10 @@ class Logger:
         for i, k in enumerate(names):
             data[f"param_{i}"] = _cpu(sd[k])
         data["n_params"] = len(names)
+        if slam.nice:
+            for i, name in enumerate(sorted(slam.c_grid)):
+                data[f"grid_{i}"] = _cpu(slam.c_grid[name])
+            data["n_grids"] = len(slam.c_grid)
         for i, (fidx, pd) in enumerate(sorted(slam.pseudo_depths.items())):
             pd = _cpu(pd)
             nz = np.flatnonzero(pd > 0)
@@ -122,7 +127,7 @@ def _params(z, template: dict) -> dict:
 
 def resume_slam(slam, path: str) -> int:
     """Restore a fresh PointNeRFSLAM from a checkpoint, in the reference's
-    order: decoder, poses, pseudo-depths (then bootstrapped), the
+    order: decoder (and NICE's grids), poses, pseudo-depths (then bootstrapped), the
     front-end (its full state, else the reference keyframe reseeded),
     the scale anchors (from the data when the checkpoint lacks them, never
     1.0), the scale telemetry, the keyframes (images reloaded from the
@@ -131,6 +136,19 @@ def resume_slam(slam, path: str) -> int:
     with torch.no_grad():
         for k, v in _params(z, slam.decoder.state_dict()).items():
             slam.decoder.get_parameter(k).copy_(v)
+    if slam.nice and "n_grids" in z:
+        names = sorted(slam.c_grid)
+        if int(z["n_grids"]) != len(names):
+            raise ValueError(f"checkpoint holds {int(z['n_grids'])} grids, "
+                             f"the system {len(names)}")
+        for i, name in enumerate(names):
+            g = slam.c_grid[name]
+            if tuple(z[f"grid_{i}"].shape) != tuple(g.shape):
+                raise ValueError(f"checkpoint grid_{i} ({name}) has shape "
+                                 f"{z[f'grid_{i}'].shape}, the system "
+                                 f"{tuple(g.shape)}")
+            slam.c_grid[name] = torch.as_tensor(
+                z[f"grid_{i}"], dtype=g.dtype, device=g.device)
     idx = int(z["idx"])
     n = min(len(z["estimate_c2w_list"]), slam.n_img)
     slam.estimate_c2w_list[:n] = z["estimate_c2w_list"][:n]

@@ -8,10 +8,12 @@ Pipeline (get_mesh):
      render.renderer.eval_points on the system's device (density 100
      outside the AABB); the decoder is evaluated by
      models.decoders.decoder_apply under the snapshot's model config, so
-     MLPConfig.fused runs K5 (room_bench's 257^3 grid: 34 launches).
-     Grid nodes outside the TSDF hull get 100; with show_forecast
+     MLPConfig.fused runs K5 (room_bench's 257^3 grid: 34 launches); NICE
+     evaluates its occupancy at the 'fine' stage with the snapshot's
+     grids. Grid nodes outside the TSDF hull get 100; with show_forecast
      (mesh_coarse_level) the grid is split seen / forecast / unseen by
-     point_masks instead: forecast + 0.2, unseen -100
+     point_masks instead: forecast at the 'coarse' stage + 0.2, unseen
+     -100
   3. the level set at meshing.level_set by the native marching-tetrahedra
      library (native/libmarching_tets.so through ctypes, built with make
      when absent), on the host as in the reference
@@ -22,7 +24,8 @@ Pipeline (get_mesh):
      remove_small_geometry_threshold)
   5. vertex colours: 'direct_point_query' (the decoder at the vertices) or
      'render_ray_along_normal' (a short render through each vertex along
-     its normal, the default); forecast vertices cyan
+     its normal, the default), NICE at its 'color' stage; forecast
+     vertices cyan
   6. vertices / scale; binary PLY in the reference's format, which its
      read_ply, tools/eval_recon.py and tools/cull_mesh.py read unchanged.
 
@@ -53,7 +56,7 @@ import numpy as np
 import torch
 
 from ..core.se3 import camera_from_tensor, to_homogeneous
-from ..models.decoders import decoder_apply
+from ..models.decoders import NICEConfig, apply_nice, decoder_apply
 from ..render.renderer import eval_points, render_rays
 from .tsdf import scene_bound_hull
 
@@ -259,8 +262,15 @@ class MeshSnapshot:
 
     def __init__(self, slam, model_cfg=None):
         self.model_cfg = model_cfg if model_cfg is not None else slam.model_cfg
-        self.params = {k: v.detach().clone()
-                       for k, v in slam.decoder.named_parameters()}
+        self.nice = isinstance(self.model_cfg, NICEConfig)
+        if self.nice:
+            self.params = {n: {k: v.detach().clone() for k, v in sub.items()}
+                           for n, sub in slam.decoder.params().items()}
+            self.c_grid = {k: v.detach().clone()
+                           for k, v in slam.c_grid.items()}
+        else:
+            self.params = {k: v.detach().clone()
+                           for k, v in slam.decoder.named_parameters()}
         self.rcfg = slam.rcfg
         self.bound = slam.bound.clone()
         self.device = slam.bound.device
@@ -269,7 +279,11 @@ class MeshSnapshot:
         self.keyframes = _KFView(slam.keyframes)
         self.estimate_c2w_list = np.array(slam.estimate_c2w_list)
 
-    def field(self, x: torch.Tensor) -> torch.Tensor:
+    def field(self, x: torch.Tensor, stage: str = "color") -> torch.Tensor:
+        """The field at points x (N, 3); NICE at `stage`."""
+        if self.nice:
+            return apply_nice(self.params, self.model_cfg, x, self.c_grid,
+                              stage, self.bound)
         return decoder_apply(self.model_cfg, self.params, x)
 
 
@@ -341,19 +355,21 @@ class Mesher:
         return torch.stack(torch.meshgrid(*ax, indexing="ij"),
                            -1).reshape(-1, 3)
 
-    def _eval_grid_gen(self, view, pts: torch.Tensor):
-        """Density at (N, 3) points, one yield per chunk."""
+    def _eval_grid_gen(self, view, pts: torch.Tensor, stage: str = "fine"):
+        """Density (occupancy) at (N, 3) points, one yield per chunk; NICE
+        evaluates `stage`."""
         out = torch.empty(pts.shape[0], device=pts.device)
         for i in range(0, pts.shape[0], self.points_batch_size):
             with torch.no_grad():
                 out[i:i + self.points_batch_size] = eval_points(
-                    view.field, pts[i:i + self.points_batch_size],
-                    view.bound)[:, 3]
+                    lambda x: view.field(x, stage),
+                    pts[i:i + self.points_batch_size], view.bound)[:, 3]
             yield
         return out
 
-    def eval_grid(self, view, pts: torch.Tensor) -> torch.Tensor:
-        return _drain(self._eval_grid_gen(view, pts))
+    def eval_grid(self, view, pts: torch.Tensor, stage: str = "fine"
+                  ) -> torch.Tensor:
+        return _drain(self._eval_grid_gen(view, pts, stage))
 
     # -- masks --------------------------------------------------------------
     def point_masks(self, slam, points, use_all_frames: bool = False,
@@ -517,9 +533,10 @@ class Mesher:
             t1 = time.time()
             timings["masks_hull"] += t1 - t0
             occ = torch.full((pts.shape[0],), -100.0, device=dev)
+            # seen at 'fine', forecast at 'coarse' + 0.2, unseen -100
             occ[seen] = yield from self._eval_grid_gen(view, pts[seen])
             occ[forecast] = (yield from self._eval_grid_gen(
-                view, pts[forecast])) + 0.2
+                view, pts[forecast], "coarse")) + 0.2
             _sync(dev)
             timings["grid"] += time.time() - t1
         else:

@@ -1,10 +1,16 @@
 """Run the port's SLAM system on a config.
 
-  python -m pointnerf_slam_torch.run <config> [--max_frames N]
-      [--device cuda|cpu] [--output DIR] [--resume CKPT]
+  python -m pointnerf_slam_torch.run <config> [--n_frames N]
+      [--input_folder DIR] [--device cuda|cpu] [--output DIR]
+      [--resume CKPT] [--profile DIR] [--live_vis]
       [--max_restarts R [--frames_per_attempt M] [--no_eval]]
 
-Runs sensor-depth and weak-depth (RGB-only) configs. Prints, per processed
+Runs sensor-depth, weak-depth (RGB-only) and NICE configs (e.g.
+configs/Synthetic/room_bench.yaml with configs/nice_slam.yaml's keys
+overlaid in a config of one's own through `inherit_from`). --n_frames N
+(alias --max_frames) processes frames 0 .. N-1; --input_folder DIR reads
+the sequence from DIR instead of the config's data.input_folder. Prints,
+per processed
 frame, the tracking loss (first -> best), the camera error against gt
 (mean |cam7 - gt cam7| and translation error in metres), the host
 seconds of the front-end, tracking and mapping (on the card also each
@@ -16,7 +22,15 @@ of phase seconds, which is also appended to <output>/run_log.txt. Output
 (mapping.ckpt_freq, the last frame, and before each mapping frame the
 state up to the frame before it), meshes in <output>/mesh/ (one every
 mapping.mesh_freq frames; at the last frame `final_mesh.ply` and, with
-meshing.eval_rec, `final_mesh_eval_rec.ply`).
+meshing.eval_rec, `final_mesh_eval_rec.ply`), render panels in
+<output>/mapping_vis/ and tracking_vis/, match panels in matches_vis/
+(weak mode), trajectory views in traj_vis/ and loss curves in loss_vis/
+(outputs.attach_outputs).
+
+--profile DIR writes a torch.profiler trace of the run (host and, on the
+card, CUDA activity) to DIR as a Chrome trace (`*.pt.trace.json`).
+--live_vis opens the live window (outputs/live_view.py; it disables
+itself with a notice where there is no GUI backend).
 
 --resume CKPT continues a run from a checkpoint (outputs/logger.py).
 --max_restarts R supervises: the run is executed again as a subprocess
@@ -91,13 +105,21 @@ def supervise(args) -> int:
     times. Returns 0 when the sequence completed (and, unless --no_eval,
     its evaluation passed)."""
     cfg = load_config(args.config)
+    if args.input_folder:
+        cfg["data"]["input_folder"] = args.input_folder
     out = args.output or cfg["data"]["output"]
     from .io.datasets import get_dataset
     total = len(get_dataset(cfg))
-    if args.max_frames:
-        total = min(total, args.max_frames)
+    if args.n_frames:
+        total = min(total, args.n_frames)
     base = [sys.executable, "-m", "pointnerf_slam_torch.run", args.config,
             "--device", args.device, "--output", out]
+    if args.input_folder:
+        base += ["--input_folder", args.input_folder]
+    if args.profile:
+        base += ["--profile", args.profile]
+    if args.live_vis:
+        base.append("--live_vis")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     chunk = args.frames_per_attempt
@@ -106,7 +128,7 @@ def supervise(args) -> int:
     for attempt in range(args.max_restarts + 1):
         start = checkpoint_index(resume) + 1 if resume else 0
         cap = min(start + chunk, total) if chunk > 0 else total
-        cmd = base + ["--max_frames", str(cap)]
+        cmd = base + ["--n_frames", str(cap)]
         if cap < total:
             cmd.append("--no_final_refine")   # not the sequence's end
         if resume:
@@ -147,11 +169,14 @@ def evaluate_completed_run(out: str, cfg) -> int:
     return rc
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("config")
-    ap.add_argument("--max_frames", type=int, default=None,
+    ap.add_argument("--n_frames", "--max_frames", dest="n_frames", type=int,
+                    default=None,
                     help="process frames 0 .. N-1 of the sequence")
+    ap.add_argument("--input_folder", type=str, default=None,
+                    help="input folder, overrides the config's")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--output", type=str, default=None,
                     help="output folder, overrides the config's")
@@ -166,19 +191,35 @@ def main(argv=None) -> int:
     ap.add_argument("--no_eval", action="store_true",
                     help="with --max_restarts: do not score the completed "
                          "run")
+    ap.add_argument("--profile", type=str, default=None,
+                    help="write a torch.profiler Chrome trace of the run "
+                         "to this directory")
+    ap.add_argument("--live_vis", action="store_true",
+                    help="live window: pose trail, latest mesh, current "
+                         "frame (disables itself without a GUI backend)")
     ap.add_argument("--no_final_refine", action="store_true",
                     help=argparse.SUPPRESS)   # a chunked attempt's end
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
     if args.max_restarts > 0:
         return supervise(args)
     cfg = load_config(args.config)
+    if args.input_folder:
+        cfg["data"]["input_folder"] = args.input_folder
     if args.no_final_refine:
         cfg["mapping"]["color_refine"] = False
         cfg["meshing"]["eval_rec"] = False
         cfg["meshing"]["final_mesh"] = False
-    slam = PointNeRFSLAM(cfg, n_frames_cap=args.max_frames,
+    slam = PointNeRFSLAM(cfg, n_frames_cap=args.n_frames,
                          device=args.device, output=args.output)
     attach_outputs(slam)
+    if args.live_vis:
+        from .outputs.live_view import LiveViewer
+        slam.aux_visualizers.append(
+            LiveViewer(slam.output, freq=cfg["mapping"]["vis_freq"]))
     start = 0
     if args.resume:
         from .outputs.logger import resume_slam
@@ -191,7 +232,20 @@ def main(argv=None) -> int:
         if s.frame_log and s.frame_log[-1]["idx"] == idx:
             print(frame_line(s.frame_log[-1]), flush=True)
 
-    est, gt = slam.run(start, on_frame=on_frame)
+    if args.profile:
+        from torch.profiler import (ProfilerActivity, profile,
+                                    tensorboard_trace_handler)
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                         if slam.device.type == "cuda"
+                                         else [])
+        with profile(activities=acts,
+                     on_trace_ready=tensorboard_trace_handler(args.profile)):
+            est, gt = slam.run(start, on_frame=on_frame)
+            if slam.device.type == "cuda":
+                torch.cuda.synchronize()
+        print(f"profiler trace in {args.profile}", flush=True)
+    else:
+        est, gt = slam.run(start, on_frame=on_frame)
     if slam.device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.time() - t0

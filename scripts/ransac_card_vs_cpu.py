@@ -4,6 +4,9 @@ given the same hypotheses.
 
   python scripts/ransac_card_vs_cpu.py --seed 14 --frame 15 --out DIR
   python scripts/ransac_card_vs_cpu.py --compare DIR/ransac_s14_f15.npz
+  python scripts/ransac_card_vs_cpu.py --system [--cpu_draws] --seed 7
+      --frame 30 --out DIR
+  python scripts/ransac_card_vs_cpu.py --compare DIR/ransac_sys_s7_f30.npz
 
 Both forms run the SuperPoint front-end's bootstrap attempts of
 configs/Synthetic/room_bench_weak.yaml (pretrained/superpoint_synthetic.npz;
@@ -18,6 +21,16 @@ card's, then recomputes every stage on the CPU from the card's inputs and
 prints how far each stage is from the card's: the 256 hypotheses' E (up
 to sign), their MSAC scores, the 8 diverse starts, and the final pose and
 inlier count.
+
+--system takes the solve from the system's own sequence instead: the
+port's system on configs/Synthetic/room_bench_weak.yaml at
+scripts/track_compare.py's cut budgets, its front-end seeded --seed (with
+--cpu_draws every draw from CPU generators, as track_compare
+--cpu_draws), run on the card to frame --frame, keeping the inputs of
+that frame's first RANSAC (the continuous two-view solve). Its --compare
+recomputes the stages on the CPU from the card's inputs (the CPU's own
+run to that frame is track_compare's business: its inputs are not
+captured here).
 """
 
 from __future__ import annotations
@@ -75,6 +88,55 @@ def capture(device: str, seed: int, frame: int) -> dict:
     return out
 
 
+def capture_system(seed: int, frame: int, cpu_draws: bool) -> dict:
+    """The inputs of frame `frame`'s first RANSAC in the port's system on
+    the card (track_compare's config and draws), numpy."""
+    import argparse as ap
+    import numpy as np
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__))))
+    import track_compare as TC
+    from pointnerf_slam_torch.engine import PointNeRFSLAM
+    from pointnerf_slam_torch.engine.state import Draws
+    from pointnerf_slam_torch.frontend import fused_twoview as TV
+    from pointnerf_slam_torch.io.config import load_config
+    args = ap.Namespace(config="configs/Synthetic/room_bench_weak.yaml",
+                        frames=frame + 1, pixels=1000, iters_first=300,
+                        fe_seed=seed, device="cuda", cpu_draws=cpu_draws,
+                        input_folder=None, bound=None,
+                        frame_cache=os.path.join("output", "frame_cache"))
+    slam = TC.system_with_draws(args, PointNeRFSLAM, Draws, load_config)
+    calls, marks = [], {}
+    ransac = TV.estimate_relative_pose_ransac
+
+    def recording(kpn_ref, kpn_cur, match_valid, hyp_idx, thresh=3e-4):
+        calls.append({"kpn_ref": kpn_ref, "kpn_cur": kpn_cur,
+                      "match_valid": match_valid, "hyp_idx": hyp_idx,
+                      "thresh": thresh})
+        return ransac(kpn_ref, kpn_cur, match_valid, hyp_idx, thresh)
+
+    step = slam.step
+
+    def marking(idx, *a):
+        marks[idx] = len(calls)
+        return step(idx, *a)
+
+    TV.estimate_relative_pose_ransac, slam.step = recording, marking
+    try:
+        slam.run()
+    finally:
+        TV.estimate_relative_pose_ransac = ransac
+    if marks.get(frame, len(calls)) >= len(calls):
+        raise SystemExit(f"no RANSAC ran at frame {frame}")
+    tel = [t for t in slam.frontend.telemetry if t["idx"] == frame]
+    print(f"card, system seed {seed}: frame {frame} telemetry {tel}",
+          flush=True)
+    c = calls[marks[frame]]
+    out = {key: c[key].detach().cpu().numpy() for key in KEYS}
+    out["thresh"] = np.float64(c["thresh"])
+    return out
+
+
 def stages(inp: dict, device: str) -> dict:
     """Each stage of epipolar.estimate_relative_pose_ransac on `device`."""
     import torch
@@ -105,7 +167,7 @@ def compare(path: str) -> int:
     z = np.load(path)
     inp = {k: z[k] for k in KEYS + ("thresh",)}
     seed, frame = int(z["seed"]), int(z["frame"])
-    cpu_in = capture("cpu", seed, frame)
+    cpu_in = inp if "system" in z else capture("cpu", seed, frame)
     for k in KEYS:
         a, b = inp[k], cpu_in[k]
         same = a.shape == b.shape and np.array_equal(a, b)
@@ -139,15 +201,24 @@ def main() -> int:
     ap.add_argument("--frame", type=int, default=15)
     ap.add_argument("--out", default="chiprun_out")
     ap.add_argument("--compare", default=None)
+    ap.add_argument("--system", action="store_true")
+    ap.add_argument("--cpu_draws", action="store_true")
     args = ap.parse_args()
     if args.compare:
         return compare(args.compare)
-    inp = capture("cuda", args.seed, args.frame)
+    if args.system:
+        inp = capture_system(args.seed, args.frame, args.cpu_draws)
+    else:
+        inp = capture("cuda", args.seed, args.frame)
     res = stages(inp, "cuda")
     os.makedirs(args.out, exist_ok=True)
-    path = os.path.join(args.out, f"ransac_s{args.seed}_f{args.frame}.npz")
+    tag = ("sys" + ("c" if args.cpu_draws else "") + "_") \
+        if args.system else ""
+    path = os.path.join(args.out,
+                        f"ransac_{tag}s{args.seed}_f{args.frame}.npz")
+    extra = {"system": True} if args.system else {}
     np.savez(path, seed=args.seed, frame=args.frame, top=np.array(
-        res.pop("top")), **inp, **res)
+        res.pop("top")), **inp, **res, **extra)
     print(f"card: {res['n_inliers']} inliers; wrote {path}")
     return 0
 

@@ -5,7 +5,7 @@ CPU.
   python scripts/track_compare.py [--config configs/Synthetic/room_bench.yaml]
       [--frames 6] [--pixels 1000] [--iters_first 300] [--out result.json]
       [--fe_seed 7] [--only jax|torch] [--device cpu|cuda]
-      [--input_folder DIR --bound JSON]
+      [--input_folder DIR --bound JSON] [--frame_cache DIR] [--cpu_draws]
 
 Runs frames 0..N-1 of a synthetic config at full resolution and full
 decoder width through the JAX reference and through the PyTorch port,
@@ -29,6 +29,12 @@ both packages' default), --only runs one package and prints its rows,
 --input_folder and --bound run a real-data config (its reader) on a
 sequence in its layout, e.g. chip_smoke.write_tum_fixture's TUM-layout
 room with the bound it returns, under configs/TUM_RGBD/tum_imap.yaml.
+--frame_cache DIR keeps the synthetic frames' ray casts in DIR
+(data.frame_cache_dir; both packages' readers share its files), so runs
+over many seeds cast each frame once. --cpu_draws draws the port's RANSAC
+hypotheses from a CPU generator on either device (as
+scripts/twoview_draws_probe.py --cpu_draws), so a card run and a CPU run
+of the front-end solve from the same hypotheses.
 """
 
 from __future__ import annotations
@@ -50,7 +56,7 @@ def config(load_config, args):
                           color_refine=False, pixels=args.pixels,
                           iters_first=args.iters_first)
     cfg["tracking"].update(pixels=args.pixels, resample_every=5)
-    cfg["data"]["frame_cache_dir"] = ""
+    cfg["data"]["frame_cache_dir"] = args.frame_cache or ""
     if args.input_folder:
         cfg["data"]["input_folder"] = args.input_folder
         cfg["mapping"]["bound"] = json.loads(args.bound)
@@ -91,7 +97,9 @@ def summary(slam, tracking) -> dict:
         else:
             rec.update({k: t[k] for k in ("n_matches", "n_inliers",
                                           "n_cand", "parallax", "par_eff",
-                                          "scale") if k in t})
+                                          "scale", "ref_idx") if k in t})
+            if "ref_idx" not in t:      # the bootstrap's record
+                rec["bootstrap"] = True
     return out
 
 
@@ -111,17 +119,40 @@ def run_jax(args) -> dict:
                           for i, f, b in slam.loss_log["tracking"]])
 
 
+def system_with_draws(args, PointNeRFSLAM, Draws, load_config):
+    """The port's system for args, its front-end's RANSAC generator seeded
+    args.fe_seed; with args.cpu_draws every draw from CPU generators."""
+    import torch
+    slam = PointNeRFSLAM(config(load_config, args), n_frames_cap=args.frames,
+                         device=args.device)
+    dev = slam.device
+
+    class OnDevice(Draws):
+        def take(self, make):
+            out = super().take(make)
+            return tuple(None if t is None else t.to(dev) for t in out) \
+                if isinstance(out, tuple) else out.to(dev)
+
+    if args.cpu_draws:
+        slam.draws = OnDevice(torch.Generator().manual_seed(
+            slam.cfg.get("seed", 1219) + 1))
+        from pointnerf_slam_torch.frontend import fused_twoview as T
+        draw = T.draw_hypotheses
+        T.draw_hypotheses = lambda g, mv: draw(g, mv.cpu()).to(mv.device)
+    if slam.frontend is not None:
+        slam.frontend.draws = Draws(torch.Generator(
+            device="cpu" if args.cpu_draws else dev).manual_seed(
+                args.fe_seed))
+    return slam
+
+
 def run_torch(args) -> dict:
     import torch
     torch.set_num_threads(max(1, len(os.sched_getaffinity(0))))
     from pointnerf_slam_torch.engine import PointNeRFSLAM
     from pointnerf_slam_torch.engine.state import Draws
     from pointnerf_slam_torch.io.config import load_config
-    slam = PointNeRFSLAM(config(load_config, args), n_frames_cap=args.frames,
-                         device=args.device)
-    if slam.frontend is not None:
-        slam.frontend.draws = Draws(torch.Generator(
-            device=slam.device).manual_seed(args.fe_seed))
+    slam = system_with_draws(args, PointNeRFSLAM, Draws, load_config)
     slam.run()
     return summary(slam, [(r["idx"], float(r["track_first"]),
                            float(r["track_best"]))
@@ -149,6 +180,8 @@ def main() -> int:
     ap.add_argument("--device", choices=("cpu", "cuda"), default="cpu")
     ap.add_argument("--input_folder", default=None)
     ap.add_argument("--bound", default=None)
+    ap.add_argument("--frame_cache", default=None)
+    ap.add_argument("--cpu_draws", action="store_true")
     ap.add_argument("--package", choices=("jax", "torch"), default=None,
                     help=argparse.SUPPRESS)   # one package, in a subprocess
     args = ap.parse_args()
@@ -166,6 +199,10 @@ def main() -> int:
         if args.input_folder:
             cmd += ["--input_folder", args.input_folder, "--bound",
                     args.bound]
+        if args.frame_cache:
+            cmd += ["--frame_cache", args.frame_cache]
+        if args.cpu_draws:
+            cmd.append("--cpu_draws")
         env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
         out = subprocess.run(cmd, env=env, capture_output=True, text=True)
         line = [ln for ln in out.stdout.splitlines()

@@ -136,10 +136,10 @@ def test_harris_score_and_angles_match_reference():
         np.asarray(jfe.intensity_centroid_angles(img, kps)), atol=1e-5)
 
 
-def test_superpoint_raises_naming_its_queue_item():
-    """SuperPoint is ported (ROADMAP Queue 1 item 11); the public
-    checkpoint is not in the repository, and naming it raises, naming the
-    file (tests/test_torch_superpoint.py holds the extractor itself)."""
+def test_superpoint_missing_checkpoint_raises_naming_the_file():
+    """The public SuperPoint checkpoint is not in the repository: naming
+    it raises, naming the file (tests/test_torch_superpoint.py holds the
+    extractor itself)."""
     with pytest.raises(FileNotFoundError, match="superpoint_v1.pth"):
         tfe.SuperPointExtractor("pretrained/superpoint_v1.pth")
 
@@ -364,7 +364,8 @@ def test_bootstrap_on_synthetic_pair():
     (tests/test_frontend.py test_bootstrap_on_synthetic)."""
     from pointnerf_slam_torch.frontend.frontend import SparseFrontend
     cfg, ds, frames = box_frames([0, 5], orbit=0.06)
-    fe = SparseFrontend(cfg, ds.H, ds.W, ds.fx, ds.fy, ds.cx, ds.cy)
+    fe = SparseFrontend(cfg, ds.H, ds.W, ds.fx, ds.fy, ds.cx, ds.cy,
+                        device="cpu")
     c2w0, (_, _, depth5, gt5) = frames[0][3], frames[1]
     est5, pseudo0, pseudo5 = fe.bootstrap(ds, 0, 5, c2w0)
     t_est = est5[:3, 3] - c2w0[:3, 3]

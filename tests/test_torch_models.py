@@ -94,5 +94,12 @@ def test_get_model_and_init_statistics():
     lim = np.sqrt(2.0) * np.sqrt(6.0 / (93 + 256))
     assert float(dec.layers[0].w.abs().max()) <= lim
     assert float(dec.layers[0].b.abs().max()) == 0.0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(cfg, nice=True)
+    # NICE is ported: the stack of the reference's levels
+    cfg.update(coarse=True, grid_len={"coarse": 2, "middle": 0.32,
+                                      "fine": 0.16, "color": 0.16})
+    cfg["model"]["c_dim"] = 32
+    ncfg, make = get_model(cfg, nice=True)
+    nice = make(torch.Generator().manual_seed(0))
+    assert [n for n, _ in nice.named_children()] == ["coarse", "middle",
+                                                     "fine", "color"]
+    assert nice.fine.fc_c[0].w.shape == (64, 32)   # concat_feature

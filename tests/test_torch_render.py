@@ -104,7 +104,11 @@ def test_regulation_matches_with_replayed_uniforms():
 
 
 def test_unsupported_sampling_raises():
+    """Every sampling option renders now; perturbed sampling without the
+    caller's uniforms (the port draws nothing itself) is refused."""
     _, dec, ro, rd, gt = setup(5)
-    with pytest.raises(NotImplementedError):
-        TR.render_rays(dec, TR.RenderConfig(N_surface=4), T(ro), T(rd),
+    TR.render_rays(dec, TR.RenderConfig(N_surface=4), T(ro), T(rd),
+                   T(BOUND), T(gt))
+    with pytest.raises(ValueError, match="uniforms"):
+        TR.render_rays(dec, TR.RenderConfig(perturb=1.0), T(ro), T(rd),
                        T(BOUND), T(gt))

@@ -114,19 +114,42 @@ def test_cuda_request_without_card_raises():
 
 
 @pytest.mark.parametrize("edit,match", [
-    (lambda c: c.update(nice=True), "NICE"),
-    (lambda c: c["mapping"].update(keyframe_selection_method="overlap"),
-     "overlap"),
-    (lambda c: c.update(parallel={"data_devices": 4}), "multi-device"),
+    pytest.param(lambda c: c.update(nice=True), "NICE", id="<lambda>-NICE"),
+    pytest.param(lambda c: c["mapping"].update(
+        keyframe_selection_method="overlap"), "overlap",
+        id="<lambda>-overlap"),
+    pytest.param(lambda c: None, "multi-device", id="<lambda>-multi-device"),
     # frustum feature masks (the mapper's grid masks, NICE's)
-    (lambda c: c["mapping"].update(frustum_feature_selection=True),
-     "item 11"),
+    pytest.param(lambda c: c["mapping"].update(
+        frustum_feature_selection=True), "item 11", id="<lambda>-item 11"),
 ])
 def test_unported_modes_raise(edit, match):
+    """The one mode left unported, multi-device mapping (parallel/,
+    ROADMAP Queue 1 item 11), is refused whatever else the config selects:
+    NICE, overlap keyframes, frustum masks, or none of them (`match`
+    names the case; test_ported_modes_construct runs them)."""
     cfg = box_cfg()
     edit(cfg)
-    with pytest.raises(NotImplementedError, match=match):
+    cfg["parallel"] = {"data_devices": 4}
+    with pytest.raises(NotImplementedError, match="multi-device.*item 11"):
         PointNeRFSLAM(cfg, n_frames_cap=2, device="cpu")
+
+
+@pytest.mark.parametrize("edit", [
+    lambda c: c.update(nice=True, weak_depth=False),
+    lambda c: c["mapping"].update(keyframe_selection_method="overlap"),
+    lambda c: c.update(nice=True, weak_depth=False, mapping={
+        **c["mapping"], "frustum_feature_selection": True})])
+def test_ported_modes_construct(edit):
+    """NICE, overlap keyframe selection and frustum masks build a system
+    (tests/test_torch_nice.py runs them against the reference)."""
+    cfg = box_cfg()
+    edit(cfg)
+    slam = PointNeRFSLAM(cfg, n_frames_cap=2, device="cpu")
+    assert slam.nice == bool(cfg.get("nice"))
+    assert bool(slam.c_grid) == slam.nice
+    assert slam._use_grid_masks == bool(
+        slam.nice and cfg["mapping"].get("frustum_feature_selection"))
 
 
 @pytest.mark.parametrize("weights,extractor", [
