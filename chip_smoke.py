@@ -117,10 +117,36 @@ Phases, in order; any failure raises and the script exits non-zero:
      poses, no BA, frames 0..5): cells outside frame 0's frustum bit for
      bit unmoved; ms per tracker and per mapper iteration by stage. No
      kernel launches (the reference keeps NICE off the kernels).
- 11. the launch counts of phases 4-10e, each path counted from 0 (every
+ 10f. parallel (engine/mapper.py `group`, parallel/): rank processes
+     (`python -c "import chip_smoke; chip_smoke.parallel_rank()"`,
+     joined through a file:// store, logs and JSON results under
+     output/chip_smoke/parallel, all stopped on a failure or after
+     PAR_TIMEOUT): (1) a one-rank NCCL group runs the weak flagship's
+     full-width mapper (680x1200 pseudo-depth window of 6 frames, 5000
+     pixels, 3 outers at K=4) bit for bit as no group does, and one NCCL
+     all_reduce leaves its tensor unchanged; (2) two gloo ranks on the
+     one card (NCCL refuses two ranks on one card), 2496 rays each: one
+     iteration's summed K1 gradients within PAR_GRAD x max|g| of one
+     process's K1 on the union of their pixels (every rank's draw holds
+     the window's deepest pixel: the far clip reads each rank's own max
+     depth, as the reference's shard_map does), the decoders bit-equal
+     after it and after 3 x 100 iterations, whose losses fall; (3) both
+     ranks run room_bench.yaml frames 0..5 through PointNeRFSLAM, each
+     with outputs.attach_outputs into its own directory (writers at
+     OUT_VIS_FREQ): rank 0 alone writes checkpoints, the mesh and the
+     panels, decoders, trajectories and keyframe cameras stay
+     bit-equal, tracked frames
+     within CAM_T_MAX, mapping losses fall, K1/K2 launched in both ranks
+     in (2) and in (3); (4) ms per mapper iteration at 1 rank and at 2
+     ranks sharing the card (the collective's cost, not scaling). The
+     ranks' launch counts of the runs through a group ((1)'s group run
+     and timed run, (2)'s 3 x 100, (3)) come back in their JSON and are
+     summed into the path's row; the comparisons against no group are
+     not counted.
+ 11. the launch counts of phases 4-10f, each path counted from 0 (every
      kernel must have launched on the main paths; K1/K2 on the sensor,
-     weak, resume and readers paths; K3/K4 on the handle_dynamic tracker,
-     mapper two-kernel and dynamic paths)
+     weak, resume, readers and parallel paths; K3/K4 on the
+     handle_dynamic tracker, mapper two-kernel and dynamic paths)
  11a. run.py: python -m pointnerf_slam_torch.run on the readers phase's
      TUM fixture (a generated config inheriting tum_imap.yaml with its
      bound, 15 mapping and 10 tracking iterations) with --input_folder,
@@ -234,6 +260,14 @@ NICE_STATIC_FRAMES = 6      # nice: static-camera variant (maps 0 and 5)
 NICE_ITERS = 10             # nice: iterations per timed stage
 RUNPY_FRAMES = 3            # run.py: --n_frames
 RUNPY_TIMEOUT = 300         # run.py: seconds for the subprocess
+PAR_RANKS = 2               # parallel: gloo ranks on the one card
+PAR_GRAD = 1e-4             # parallel: summed K1 gradients vs the union's,
+#                             x max|g| per tensor (float32 sum order)
+PAR_CHECK_ITERS = 20        # parallel: iterations per outer of the NCCL
+#                             bit-equality check (3 outers)
+PAR_ITERS = 100             # parallel: iterations per outer, 3 outers
+PAR_FRAMES = 6              # parallel: room_bench frames 0..5
+PAR_TIMEOUT = 300           # parallel: seconds for a phase's ranks
 
 
 def card() -> str:
@@ -2446,6 +2480,367 @@ def phase_runpy(torch, readers):
     return secs
 
 
+def par_ecfg(**over):
+    """The weak flagship's mapper at full width: 680x1200 pseudo-depth
+    frames, a 6-frame window, 5000 pixels (split over the ranks), 3 outers
+    of 100 iterations at K=4, BA off, w_beyond 1."""
+    return bench_ecfg(weak_depth=True, **over)
+
+
+def par_window(torch):
+    """Six 680x1200 frames of sparse pseudo-depth (30% of pixels hold a
+    depth, as a splatted pseudo-depth holds few), random colours, cameras
+    1 cm apart, valid, no BA; stacked for 3 outers."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    colors = (torch.rand(6, H, W, 3, generator=g, device=dev) * 255).to(
+        torch.uint8)
+    depths = (0.5 + 2.5 * torch.rand(6, H, W, generator=g, device=dev)) * (
+        torch.rand(6, H, W, generator=g, device=dev) < 0.3)
+    cams = torch.tensor([1.0, 0, 0, 0, 0, 0, 2.5], device=dev).repeat(6, 1)
+    cams[:, 4] = 0.01 * torch.arange(6, device=dev)
+    valid = torch.ones(6, dtype=torch.bool, device=dev)
+    ba = torch.zeros(6, dtype=torch.bool, device=dev)
+    bound = torch.tensor([[-3.5, 3.5]] * 3, device=dev)
+    one = (colors, depths, cams, valid, ba)
+    return one, tuple(t.expand((3,) + t.shape).contiguous() for t in one), \
+        bound
+
+
+def par_digest(tensors) -> str:
+    import hashlib
+    return hashlib.sha256(b"".join(t.detach().cpu().numpy().tobytes()
+                                   for t in tensors)).hexdigest()
+
+
+def par_rank_nccl(torch, dist, rank):
+    """(1) and the 1-rank half of (4) in a one-rank NCCL group: the
+    mapper schedule with the group and without, bit for bit; one NCCL
+    all_reduce over the group; ms per iteration of 3 x 100. "launches":
+    the runs through the group (the check's and the timed one), not the
+    run without it."""
+    import copy
+    from pointnerf_slam_torch.engine.mapper import make_mapper_step
+    from pointnerf_slam_torch.engine.state import Draws
+    from pointnerf_slam_torch.models.decoders import IMAPDecoder, MLPConfig
+    from pointnerf_slam_torch.ops import fused_vg as F
+    from pointnerf_slam_torch.parallel import make_mesh
+    from pointnerf_slam_torch.render.renderer import RenderConfig
+    dev = torch.device("cuda")
+    group = make_mesh(device=dev)
+    dec0 = IMAPDecoder(MLPConfig(), torch.Generator().manual_seed(0)).to(dev)
+    _, win3, bound = par_window(torch)
+    runs = {}
+    for tag, g in (("group", group), ("none", None)):
+        F.reset_launches()
+        dec = copy.deepcopy(dec0)
+        step = make_mapper_step(MLPConfig(), RenderConfig(), par_ecfg(), 6,
+                                outer_fused=True, group=g)
+        _, ls = step(dec, *win3, bound, Draws(torch.Generator(
+            device=dev).manual_seed(5)), PAR_CHECK_ITERS)
+        runs[tag] = (list(dec.parameters()), ls)
+        if tag == "group":
+            launches = dict(F.launches)
+    bit_equal = torch.equal(runs["group"][1], runs["none"][1]) and all(
+        torch.equal(a, b) for a, b in zip(runs["group"][0],
+                                          runs["none"][0]))
+    flat = torch.cat([p.detach().reshape(-1) for p in runs["group"][0]])
+    before = flat.clone()
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+    torch.cuda.synchronize()
+    dec = copy.deepcopy(dec0)
+    step = make_mapper_step(MLPConfig(), RenderConfig(), par_ecfg(), 6,
+                            outer_fused=True, group=group)
+    draws = Draws(torch.Generator(device=dev).manual_seed(1000))
+    torch.cuda.synchronize()
+    F.reset_launches()
+    t0 = time.time()
+    _, ls = step(dec, *win3, bound, draws, PAR_ITERS)
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3 / (3 * PAR_ITERS)
+    launches = {k: v + launches[k] for k, v in F.launches.items()}
+    return {"world": group.world_size, "backend": dist.get_backend(),
+            "bit_equal": bool(bit_equal),
+            "nccl_all_reduce_equal": bool(torch.equal(flat, before)),
+            "ms_per_iter": ms, "falls": falls(ls, 10),
+            "loss": [float(ls[:10].mean()), float(ls[-10:].mean())],
+            "launches": launches}
+
+
+def par_rank_gloo(torch, dist, rank):
+    """(2), (3) and the 2-rank half of (4) on one of the gloo ranks.
+    "launches_mapper": (2b)'s launches, "launches": (3)'s; (2a)'s check
+    against one process on the union is not counted."""
+    import copy
+    import numpy as np
+    from pointnerf_slam_torch.core.rays import sample_uv_valid
+    from pointnerf_slam_torch.engine import PointNeRFSLAM
+    from pointnerf_slam_torch.engine.mapper import make_mapper_step
+    from pointnerf_slam_torch.engine.state import Draws
+    from pointnerf_slam_torch.io.config import load_config
+    from pointnerf_slam_torch.models.decoders import IMAPDecoder, MLPConfig
+    from pointnerf_slam_torch.ops import fused_vg as F
+    from pointnerf_slam_torch.outputs import attach_outputs
+    from pointnerf_slam_torch.parallel import make_mesh
+    from pointnerf_slam_torch.render.renderer import RenderConfig
+    dev = torch.device("cuda")
+    group = make_mesh(device=dev)
+    world = group.world_size
+    res = {"world": world, "backend": dist.get_backend()}
+    dec0 = IMAPDecoder(MLPConfig(), torch.Generator().manual_seed(0)).to(dev)
+    win, win3, bound = par_window(torch)
+    # (2a) one iteration: each rank's own pixels (rank r's from generator
+    # 100 + r), K1's gradients summed over the group; rank 0 also runs K1
+    # without a group on the union of every rank's pixels. The far clip
+    # reads the max depth of the rays a rank renders (per device, as the
+    # reference's shard_map), so every rank's first pixel is the window's
+    # deepest: each rank's max then equals the union's
+    ppf = 5000 // 6 // world
+    deepest = int(win[1].reshape(-1).argmax())
+    f_max, px_max = divmod(deepest, H * W)
+    draws = []
+    for r in range(world):
+        g = torch.Generator(device=dev).manual_seed(100 + r)
+        idx = torch.stack([sample_uv_valid(g, d > 0.01, ppf)[0]
+                           for d in win[1]])
+        idx[f_max, 0] = px_max
+        draws.append((idx, torch.rand(6 * ppf, 32, generator=g,
+                                      device=dev)))
+    dec = copy.deepcopy(dec0)
+    _, ls = make_mapper_step(MLPConfig(), RenderConfig(), par_ecfg(), 6,
+                             group=group)(
+        dec, *win, bound, Draws(replay=list(draws[rank])), 1)
+    res["rays_per_rank"] = 6 * ppf
+    res["after_one"] = par_digest(dec.parameters())
+    if rank == 0:
+        dec_u = copy.deepcopy(dec0)
+        idx_u = torch.cat([d[0] for d in draws], 1)
+        t_u = torch.cat([d[1].reshape(6, ppf, -1) for d in draws],
+                        1).reshape(6 * ppf * world, -1)
+        _, ls_u = make_mapper_step(
+            MLPConfig(), RenderConfig(),
+            par_ecfg(mapping_pixels=6 * ppf * world), 6)(
+            dec_u, *win, bound, Draws(replay=[idx_u, t_u]), 1)
+        rel = {n: float((p.grad - q.grad).abs().max() / q.grad.abs().max())
+               for (n, p), q in zip(dec.named_parameters(),
+                                    dec_u.parameters())}
+        res["union_rays"] = int(idx_u.numel())
+        res["union_grad_rel"] = rel
+        res["union_loss"] = [float(ls[0]), float(ls_u[0])]
+    # (2b) the weak flagship's mapper schedule, 3 x 100 at K=4, each rank
+    # on its own stream; the summed gradients keep the decoders equal
+    F.reset_launches()
+    dec = copy.deepcopy(dec0)
+    step = make_mapper_step(MLPConfig(), RenderConfig(), par_ecfg(), 6,
+                            outer_fused=True, group=group)
+    gen = torch.Generator(device=dev).manual_seed(1000 + rank)
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    _, ls = step(dec, *win3, bound, Draws(gen), PAR_ITERS)
+    torch.cuda.synchronize()
+    res["ms_per_iter"] = (time.time() - t0) * 1e3 / (3 * PAR_ITERS)
+    res["falls"] = falls(ls, 10)
+    res["loss"] = [float(ls[:10].mean()), float(ls[-10:].mean())]
+    res["after_300"] = par_digest(dec.parameters())
+    res["launches_mapper"] = dict(F.launches)
+    # (3) room_bench frames 0..5 through the system, as phase_system runs
+    # them, on every rank, each with outputs.attach_outputs into its own
+    # directory: rank 0 alone writes (checkpoints, the final mesh, the
+    # panels at OUT_VIS_FREQ, so frame 5's tracking panel is drawn), and
+    # every rank commits its tracked poses alike
+    cfg = load_config(os.path.join(HERE, "configs/Synthetic/room_bench.yaml"))
+    cfg["mapping"].update(fused_outer=True, resample_every=4,
+                          color_refine=False, vis_freq=OUT_VIS_FREQ)
+    cfg["tracking"].update(resample_every=5, vis_freq=OUT_VIS_FREQ)
+    cfg["meshing"]["eval_rec"] = False
+    cfg["data"]["frame_cache_dir"] = ""
+    out = os.path.join(HERE, "output", "chip_smoke", "parallel",
+                       f"rank{rank}_out")
+    shutil.rmtree(out, ignore_errors=True)
+    slam = attach_outputs(PointNeRFSLAM(cfg, n_frames_cap=PAR_FRAMES,
+                                        device="cuda", output=out))
+    if slam.group.world_size != world:
+        raise RuntimeError(f"the system sees {slam.group.world_size} ranks")
+    F.reset_launches()
+    t0 = time.time()
+    slam.run()
+    torch.cuda.synchronize()
+    res["system_s"] = time.time() - t0
+    res["launches"] = dict(F.launches)
+    res["written"] = sorted(
+        os.path.relpath(os.path.join(d, f), out)
+        for d, _, files in os.walk(out) for f in files)
+    res["system_decoder"] = par_digest(slam.decoder.parameters())
+    res["system_poses"] = par_digest([torch.as_tensor(
+        np.ascontiguousarray(slam.estimate_c2w_list))])
+    res["system_keyframes"] = par_digest([slam.keyframes.est_c2w])
+    res["frames"] = {}
+    for rec in slam.frame_log:
+        r = {}
+        if "map_losses" in rec:
+            r["map_falls"] = falls(rec["map_losses"], 10)
+        if "t_err_m" in rec:
+            r["t_err_m"] = float(rec["t_err_m"])
+        res["frames"][str(rec["idx"])] = r
+    return res
+
+
+def parallel_rank() -> None:
+    """A rank process of phase_parallel (argv: task, store, rank, world,
+    output directory): joins the group through the file store, runs its
+    task on the card and writes rank<r>_<task>.json."""
+    task, store, out = sys.argv[1], sys.argv[2], sys.argv[5]
+    rank, world = int(sys.argv[3]), int(sys.argv[4])
+    sys.path.insert(0, HERE)
+    import torch
+    import torch.distributed as dist
+    if not torch.cuda.is_available():
+        raise SystemExit(f"rank {rank}: no CUDA device")
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl" if task == "nccl" else "gloo",
+                            init_method=f"file://{store}", rank=rank,
+                            world_size=world)
+    try:
+        res = (par_rank_nccl if task == "nccl" else par_rank_gloo)(
+            torch, dist, rank)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out, f"rank{rank}_{task}.json"), "w") as fh:
+        json.dump(res, fh)
+
+
+def par_launch(task: str, world: int, out: str) -> list:
+    """Start `world` rank processes of task (a file:// store under out),
+    wait for them, stop them all on a failure or at PAR_TIMEOUT, and
+    return their results; a rank that fails fails the phase."""
+    store = os.path.join(out, f"store_{task}")
+    code = (f"import sys; sys.path.insert(0, {HERE!r}); import chip_smoke; "
+            f"chip_smoke.parallel_rank()")
+    logs, procs = [], []
+    for r in range(world):
+        logs.append(open(os.path.join(out, f"rank{r}_{task}.log"), "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code, task, store, str(r), str(world),
+             out], stdout=logs[-1], stderr=subprocess.STDOUT))
+    t_end = time.time() + PAR_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.time() > t_end or any(p.poll() not in (None, 0)
+                                          for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for fh in logs:
+            fh.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        for r in bad:
+            with open(os.path.join(out, f"rank{r}_{task}.log")) as fh:
+                print(f"parallel: rank {r} of {task} (rc "
+                      f"{procs[r].returncode}), last lines:\n"
+                      + "".join(fh.readlines()[-30:]), flush=True)
+        fail(f"parallel: {task} rank(s) {bad} failed or timed out")
+    outs = []
+    for r in range(world):
+        with open(os.path.join(out, f"rank{r}_{task}.json")) as fh:
+            outs.append(json.load(fh))
+    return outs
+
+
+def phase_parallel(torch):
+    """Data-parallel mapping on the one card. Returns {"launches": the
+    ranks' summed launch counts, "ms": (1 rank, 2 ranks)}."""
+    out = os.path.join(HERE, "output", "chip_smoke", "parallel")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    t0 = time.time()
+    (one,) = par_launch("nccl", 1, out)
+    if not (one["world"] == 1 and one["backend"] == "nccl"):
+        fail(f"parallel: the NCCL group is {one['world']} x "
+             f"{one['backend']}")
+    if not one["bit_equal"]:
+        fail("parallel: the mapper under a one-rank NCCL group differs "
+             "from no group")
+    if not one["nccl_all_reduce_equal"]:
+        fail("parallel: a one-rank NCCL all_reduce changed its tensor")
+    if not one["falls"]:
+        fail(f"parallel: 1-rank mapper loss did not fall: {one['loss']}")
+    print(f"parallel: (1) one-rank NCCL group: 3 x {PAR_CHECK_ITERS} mapper "
+          f"iterations (4998 rays, weak 680x1200 window) bit for bit "
+          f"equal to no group; NCCL all_reduce ok", flush=True)
+    ranks = par_launch("gloo", PAR_RANKS, out)
+    r0 = ranks[0]
+    worst = max(r0["union_grad_rel"].values())
+    print(f"parallel: (2) {PAR_RANKS} gloo ranks on one card, "
+          f"{r0['rays_per_rank']} rays each: summed K1 gradients against "
+          f"one process's K1 on the union ({r0['union_rays']} rays): "
+          f"max |diff| / max|g| {worst:.3e} (bound {PAR_GRAD:g}) "
+          f"{ {k: f'{v:.2e}' for k, v in r0['union_grad_rel'].items()} }; "
+          f"losses {r0['union_loss']}", flush=True)
+    if not worst <= PAR_GRAD:
+        fail(f"parallel: summed gradients off the union's by {worst}")
+    for key in ("after_one", "after_300", "system_decoder", "system_poses",
+                "system_keyframes"):
+        if len({r[key] for r in ranks}) != 1:
+            fail(f"parallel: the ranks' {key} differ")
+    print(f"parallel: decoders bit-equal across ranks after 1 and 3 x "
+          f"{PAR_ITERS} iterations and after the system run; trajectories "
+          f"and keyframe cameras bit-equal", flush=True)
+    for r, res in enumerate(ranks):
+        if res["world"] != PAR_RANKS or res["backend"] != "gloo":
+            fail(f"parallel: rank {r} group {res['world']} x "
+                 f"{res['backend']}")
+        if not res["falls"]:
+            fail(f"parallel: rank {r} mapper loss did not fall: "
+                 f"{res['loss']}")
+        for k in ("p1_sigma", "fused_vg_mapper"):
+            if one["launches"][k] <= 0:
+                fail(f"parallel: the NCCL rank did not launch {k}")
+            if res["launches"][k] <= 0 or res["launches_mapper"][k] <= 0:
+                fail(f"parallel: rank {r} did not launch {k} in both the "
+                     f"mapper schedule and the system")
+        for idx, fr in res["frames"].items():
+            if "map_falls" in fr and not fr["map_falls"]:
+                fail(f"parallel: rank {r} frame {idx} mapping loss did not "
+                     f"fall")
+            if "t_err_m" in fr and not fr["t_err_m"] <= CAM_T_MAX:
+                fail(f"parallel: rank {r} frame {idx} t err {fr['t_err_m']}")
+    written = [sorted({w.split(os.sep)[0] for w in res["written"]})
+               for res in ranks]
+    want = ["ckpts", "mapping_vis", "mesh", "tracking_vis"]
+    if any(d not in written[0] for d in want) or any(written[1:]):
+        fail(f"parallel: outputs written per rank {written}; rank 0 alone "
+             f"writes {want}")
+    errs = {i: round(f["t_err_m"] * 1000, 2) for i, f in
+            r0["frames"].items() if "t_err_m" in f}
+    print(f"parallel: (3) room_bench frames 0..{PAR_FRAMES - 1} on "
+          f"{PAR_RANKS} ranks with outputs attached on each in "
+          f"{r0['system_s']:.1f} s: t err mm {errs} (bound "
+          f"{CAM_T_MAX * 1000:.0f}), mapping losses fall; written per rank "
+          f"{written}", flush=True)
+    ms1 = one["ms_per_iter"]
+    ms2 = [res["ms_per_iter"] for res in ranks]
+    print(f"parallel: (4) ms per mapper iteration (3 x {PAR_ITERS}, K=4): "
+          f"1 rank {ms1:.3f} (4998 rays), {PAR_RANKS} ranks "
+          f"{[round(m, 3) for m in ms2]} ({r0['rays_per_rank']} rays each, "
+          f"gloo all_reduce of the gradients per iteration); {card()}; "
+          f"phase {time.time() - t0:.1f} s", flush=True)
+    per_rank = [{k: res["launches"][k] + res["launches_mapper"][k]
+                 for k in res["launches"]} for res in ranks]
+    total = {k: one["launches"][k] + sum(c[k] for c in per_rank)
+             for k in one["launches"]}
+    print(f"parallel: launches: one-rank NCCL {one['launches']}, gloo "
+          f"ranks {per_rank}", flush=True)
+    return {"launches": total, "ms": (ms1, ms2)}
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print("chip_smoke: takes no arguments", file=sys.stderr)
@@ -2512,13 +2907,18 @@ def main() -> int:
              ("outputs", lambda: phase_outputs(torch, weak), ()),
              ("superpoint", lambda: phase_superpoint(torch), ()),
              ("readers", lambda: phase_readers(torch), k1),
-             ("nice", lambda: phase_nice(torch), ()))
+             ("nice", lambda: phase_nice(torch), ()),
+             ("parallel", lambda: phase_parallel(torch),
+              ("p1_sigma", "fused_vg_mapper")))
     # the paths the reference keeps off every kernel (render_img, NICE)
     none = ("outputs", "nice")
     for label, run, must in paths:
         F.reset_launches()
         out = run()
         got = dict(F.launches)
+        if label == "parallel":
+            # the ranks' processes launch; their counts come back summed
+            got = {k: v + out["launches"].get(k, 0) for k, v in got.items()}
         print(f"launches on the {label} path: {got}", flush=True)
         for k in must:
             if got[k] <= 0:
@@ -2551,6 +2951,8 @@ def main() -> int:
             render_ms = out
         elif label == "nice":
             nice_ms = out
+        elif label == "parallel":
+            par_ms = out["ms"]
         elif label == "readers":
             readers = out
             want = tum_schedule(out.cfg, TUM_FRAMES, track_checks=1)
@@ -2565,7 +2967,8 @@ def main() -> int:
             fail(f"kernel {k} never launched on the main path")
     runpy_s = phase_runpy(torch, readers)
     print(f"new phases: render_img {render_ms:.3f} ms per 680x1200 frame; "
-          f"NICE ms per iteration {nice_ms}; run.py {runpy_s:.1f} s "
+          f"NICE ms per iteration {nice_ms}; parallel mapper ms per "
+          f"iteration (1 rank, 2 ranks) {par_ms}; run.py {runpy_s:.1f} s "
           f"(launches of the run.py phase are its subprocess's, not "
           f"counted here)", flush=True)
     phase_tools(slam, weak)

@@ -40,14 +40,17 @@ def stratified_zvals(near: torch.Tensor, far: torch.Tensor, n: int,
     return z
 
 
-def surface_zvals(gt_depth: torch.Tensor, n: int) -> torch.Tensor:
+def surface_zvals(gt_depth: torch.Tensor, n: int,
+                  depth_max: torch.Tensor | None = None) -> torch.Tensor:
     """(N, n) z in the surface band around each ray's depth (N,):
     linspace over [0.95 d, 1.05 d] where d > 0, else over [0.001,
-    max(gt_depth)] (the max runs over the whole batch)."""
+    max(gt_depth)] (the max runs over the whole batch, or is depth_max
+    where given)."""
     t = torch.linspace(0.0, 1.0, n, device=gt_depth.device)
     d = gt_depth[..., None]
     z_surf = 0.95 * d * (1.0 - t) + 1.05 * d * t
-    z_zero = 0.001 * (1.0 - t) + torch.max(gt_depth) * t
+    top = torch.max(gt_depth) if depth_max is None else depth_max
+    z_zero = 0.001 * (1.0 - t) + top * t
     return torch.where(d > 0, z_surf, z_zero[None])
 
 

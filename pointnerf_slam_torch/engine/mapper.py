@@ -42,7 +42,14 @@ reference's masked camera gradients are zero there, so its camera Adam
 moves nothing either). `mapper_multi_step` runs the 3-outer schedule as a
 plain loop over outers, each with its own window and a fresh Adam.
 
-Multi-device mapping is not ported (ROADMAP Queue 1 item 11, parallel/).
+Data-parallel mapping (`group`, a parallel.DataGroup of world size W > 1,
+the reference's `mesh`): every rank draws its own mapping_pixels //
+max_frames // W pixels per frame from the same window (its draws are its
+own), and after each backward the trained tensors' gradients (the
+decoder's, NICE's grids, the cameras' under BA) and the loss are summed
+over the group in one all-reduce, before the grid masks, the BA mask and
+Adam; the returned losses are the group's totals. At world size 1 (or no
+group) the step takes no collective and draws as before.
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ from ..ops.fused_vg import (_BEYOND_HI, _BEYOND_LO, fused_vg_loss,
                             make_fused_vg_split, supports_fused_vg,
                             supports_megakernel)
 from ..ops.megakernel import make_fused_render
+from ..parallel.mapping import all_reduce_grads
 from ..render.renderer import regulation, render_rays
 from .state import Draws, EngineConfig
 
@@ -63,13 +71,15 @@ from .state import Draws, EngineConfig
 def make_mapper_step(model_cfg, rcfg, ecfg: EngineConfig, max_frames: int,
                      outer_fused: bool = False, stage: str = "color",
                      grid_lrs: dict | None = None,
-                     decoders_lr: float | None = None):
+                     decoders_lr: float | None = None, group=None):
     """The mapping update for a window of `max_frames` frames (stage,
     grid_lrs and decoders_lr: NICE's stage, its per-grid learning rates
-    {grid name: lr} and its decoder learning rate)."""
+    {grid name: lr} and its decoder learning rate; group: the DataGroup
+    the ray budget is split over)."""
     H, W = ecfg.H, ecfg.W
     nice = isinstance(model_cfg, NICEConfig)
-    ppf = max(ecfg.mapping_pixels // max_frames, 1)
+    n_ranks = group.world_size if group is not None else 1
+    ppf = max(ecfg.mapping_pixels // max_frames // n_ranks, 1)
     no_cam = bool(ecfg.no_ba_fast and not ecfg.BA)
     color_in_loss = not nice or stage == "color"
     dec_lr = ecfg.imap_decoders_lr if decoders_lr is None else decoders_lr
@@ -177,6 +187,8 @@ def make_mapper_step(model_cfg, rcfg, ecfg: EngineConfig, max_frames: int,
         cams_opt = fixed_cams.detach().clone().requires_grad_(not no_cam)
         cam_opt = (None if no_cam else
                    torch.optim.Adam([cams_opt], lr=ecfg.BA_cam_lr, eps=1e-8))
+        trained = [p for grp in opt.param_groups for p in grp["params"]] \
+            + ([] if no_cam else [cams_opt])
         valid_f = frame_valid.to(torch.float32)
         ray_w = valid_f.repeat_interleave(ppf) * (
             max_frames / valid_f.sum().clamp(min=1.0))
@@ -220,6 +232,7 @@ def make_mapper_step(model_cfg, rcfg, ecfg: EngineConfig, max_frames: int,
                 if cam_opt is not None:
                     cam_opt.zero_grad(set_to_none=True)
                 loss.backward()
+                loss = all_reduce_grads(trained, loss, group)
                 if grid_masks:
                     for name, g in grids.items():
                         if g.grad is not None:

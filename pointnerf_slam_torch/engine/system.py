@@ -62,8 +62,17 @@ Datasets: every reader of io/datasets.py (synthetic, replica, scannet,
 tumrgbd, cofusion, azure). Weak mode's front-end takes SuperPoint where
 `superpoint_weights` names a checkpoint that exists, else Harris.
 
-Not ported yet (raises NotImplementedError): multi-device mapping
-(ROADMAP Queue 1 item 11, parallel/).
+Data parallelism (parallel.data_devices): under an initialised
+torch.distributed default group of W processes, one per device (run.py
+starts them), "auto" maps over the whole group and an int is clamped to
+W; the mapper then splits its ray budget over the ranks and sums the
+gradients each iteration (engine/mapper.py `group`). Tracking, the
+front-end, keyframe selection and np_rng stay common: every rank makes
+the same draws from `draws` and np_rng, and each map call takes its rank's
+stream from one draw of the common stream with the rank folded in (the
+reference folds the device index into its mapper keys), so every rank
+keeps the same decoder, window and trajectory. Only rank 0 writes outputs
+(outputs.attach_outputs).
 """
 
 from __future__ import annotations
@@ -79,6 +88,7 @@ from ..core.se3_np import (camera_from_tensor_np, interp_c2w_np,
 from ..io.config import load_config
 from ..io.datasets import get_dataset
 from ..models.decoders import get_model
+from ..parallel.mapping import data_devices, make_mesh
 from ..render.renderer import RenderConfig
 from ..utils.device import resolve_device
 from .mapper import make_mapper_step
@@ -109,11 +119,14 @@ class PointNeRFSLAM:
         self.tracking_visualizer = None
         self.match_visualizer = None
         self.aux_visualizers = []
-        want = (cfg.get("parallel", {}) or {}).get("data_devices", "auto")
-        if want != "auto" and int(want) > 1:
-            raise NotImplementedError(
-                "multi-device mapping is not ported yet (ROADMAP Queue 1 "
-                "item 11, parallel/: the one module left, next slice)")
+        # commit a tracked pose to the host table at once, as the tracking
+        # panel needs; attach_outputs sets it on every rank, so the ranks'
+        # windows stay equal though rank 0 alone draws the panels
+        self.commit_tracked_pose = False
+        self.group = make_mesh(device=self.device)
+        data_devices((cfg.get("parallel", {}) or {}).get("data_devices",
+                                                         "auto"),
+                     self.group.world_size)
 
         self._update_cam()
         self._load_bound()
@@ -246,7 +259,7 @@ class PointNeRFSLAM:
             self._mapper_steps[key] = make_mapper_step(
                 self.model_cfg, self.rcfg, self.ecfg, max_frames,
                 outer_fused=outer_fused, stage=stage, grid_lrs=grid_lrs,
-                decoders_lr=dec_lr)
+                decoders_lr=dec_lr, group=self.group)
         return self._mapper_steps[key]
 
     def _stage_schedule(self, num_iters: int):
@@ -412,6 +425,19 @@ class PointNeRFSLAM:
         return torch.zeros(self.H, self.W, device=self.device)
 
     # -- mapping ----------------------------------------------------------
+    def _mapper_draws(self) -> Draws:
+        """The draws of one map call: the common stream at world size 1;
+        with W ranks a generator seeded from one draw of the common stream
+        (the same on every rank) and the rank."""
+        if self.group.world_size == 1:
+            return self.draws
+        s = self.draws.take(lambda g: torch.randint(
+            0, 2 ** 62, (1,), generator=g, device=g.device))
+        seed = np.random.SeedSequence([int(s), self.group.rank]
+                                      ).generate_state(1, np.uint64)[0]
+        return Draws(torch.Generator(device=self.device).manual_seed(
+            int(seed)))
+
     def _map_frame(self, idx, color, sensor_depth, num_iters, outer_iters,
                    refine=False, lr_factor: float = 1.0):
         t0 = self._clock()
@@ -428,6 +454,7 @@ class PointNeRFSLAM:
                       if self._use_grid_masks else None)
         do_ba = self.ecfg.BA and len(self.keyframes) > 4
         self._log(idx, "ba", do_ba)
+        draws = self._mapper_draws()
 
         def select():
             return self._select_window(refine, cur_depth,
@@ -442,7 +469,7 @@ class PointNeRFSLAM:
             ba_o = torch.zeros_like(stacked[3])
             step_fn = self._get_mapper_step(max_frames, True)
             _, losses = step_fn(self.decoder, *stacked, ba_o, self.bound,
-                                self.draws, num_iters)
+                                draws, num_iters)
             self._log(idx, "map_losses", losses)
             self.mapping_first_frame_done = True
             self._tick("mapping", t0, idx)
@@ -465,7 +492,7 @@ class PointNeRFSLAM:
                                                 lr_factor)
                 cams, losses = step_fn(self.decoder, colors, depths, cams,
                                        valid, ba_mask, self.bound,
-                                       self.draws, n_iters, self.c_grid,
+                                       draws, n_iters, self.c_grid,
                                        grid_masks)
                 self._log(idx, "map_losses", losses)
             cams_out = cams
@@ -507,10 +534,11 @@ class PointNeRFSLAM:
         self._log(idx, "t_err_m", torch.linalg.norm(gt_cam[4:]
                                                     - best_cam[4:]))
         self._pending_pose = (idx, best_cam)
-        if self.tracking_visualizer is not None:
+        if self.commit_tracked_pose:
             # the panel renders at the committed pose, which the mapper
             # then takes from the host table as well (as the reference)
             self._commit_pending_pose()
+        if self.tracking_visualizer is not None:
             self.tracking_visualizer.vis(self, idx, sensor_depth, color,
                                          self.estimate_c2w_list[idx])
         self._tick("tracking", t0, idx)
@@ -629,8 +657,9 @@ class PointNeRFSLAM:
             est_c2w, pseudo_ref, pseudo_cur = self.frontend.bootstrap(
                 self.frame_reader, 0, idx, self.estimate_c2w_list[0])
         except RuntimeError as err:
-            print(f"frontend bootstrap failed at {idx} ({err}); retrying at "
-                  f"the next tracked frame", flush=True)
+            if self.group.rank == 0:
+                print(f"frontend bootstrap failed at {idx} ({err}); "
+                      f"retrying at the next tracked frame", flush=True)
             self.estimate_c2w_list[idx] = self.estimate_c2w_list[idx - 1]
             self._tick("frontend", t0, idx)
             return

@@ -32,7 +32,14 @@ def attach_outputs(slam):
         tracking.vis_freq;
       - traj_vis/{idx:05d}.png and loss_vis/loss_curves.png at
         mapping.vis_freq.
-    It flushes the mesher at the end."""
+    It flushes the mesher at the end.
+
+    In a data-parallel run (slam.group of several ranks) only rank 0 is
+    wired; every rank commits its tracked poses as rank 0's tracking panel
+    does, so the ranks' windows stay equal."""
+    slam.commit_tracked_pose = True
+    if slam.group.rank != 0:
+        return slam
     cfg = slam.cfg
     m = cfg["mapping"]
     slam.logger = Logger(slam.output, m["ckpt_freq"], slam.n_img,

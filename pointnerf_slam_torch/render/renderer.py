@@ -49,10 +49,15 @@ class RenderConfig:
                    perturb=r["perturb"], occupancy=cfg["occupancy"])
 
 
-def clip_far(far_bb: torch.Tensor, gt_depth: torch.Tensor) -> torch.Tensor:
+def clip_far(far_bb: torch.Tensor, gt_depth: torch.Tensor,
+             depth_max: torch.Tensor | None = None) -> torch.Tensor:
     """clip(far_bb, 0, max(gt_depth * 1.2)); the max runs over the whole
-    batch (every window frame in the mapper), on the device."""
-    return torch.minimum(far_bb.clamp(min=0.0), torch.max(gt_depth * 1.2))
+    batch (every window frame in the mapper), on the device, or is taken
+    as depth_max * 1.2 where the batch is one shard of a larger one
+    (parallel.make_sharded_mapping_step)."""
+    top = torch.max(gt_depth * 1.2) if depth_max is None \
+        else depth_max * 1.2
+    return torch.minimum(far_bb.clamp(min=0.0), top)
 
 
 def eval_points(decoder, pts: torch.Tensor, bound: torch.Tensor,
@@ -75,12 +80,15 @@ def _field(decoder, rays_o, rays_d, z, bound, c_grid=None, stage="color"):
 
 def render_rays(decoder, rcfg: RenderConfig, rays_o, rays_d, bound,
                 gt_depth, with_zvals: bool = False, c_grid=None,
-                stage: str = "color", t_rand=None, u_imp=None):
+                stage: str = "color", t_rand=None, u_imp=None,
+                depth_max=None):
     """Render (N,) rays guided by gt_depth (N,); with gt_depth None (a
     novel view, no depth prior) near is 0.01, far the AABB exit and there
     is no surface band. With rcfg.perturb > 0, t_rand (N, N_samples) and
     (when N_importance > 0) u_imp (N, N_importance) are the caller's
-    uniforms.
+    uniforms. depth_max: max(gt_depth) of the whole batch when these rays
+    are one shard of it (the far clip and the zero-depth surface band
+    read it); None: this batch's.
 
     Returns depth (N,), depth_var (N,), color (N, 3), weights (N, S)
     [, z_vals (N, S), sigma (N, S) with with_zvals]."""
@@ -94,12 +102,13 @@ def render_rays(decoder, rcfg: RenderConfig, rays_o, rays_d, bound,
     else:
         gt_depth = gt_depth.reshape(-1)
         near = (gt_depth * 0.01)[:, None]
-        far = clip_far(far[:, 0], gt_depth)[:, None]
+        far = clip_far(far[:, 0], gt_depth, depth_max)[:, None]
     z = stratified_zvals(near, far, rcfg.N_samples,
                          t_rand if rcfg.perturb > 0 else None, rcfg.lindisp)
     if rcfg.N_surface > 0 and gt_depth is not None:
         z, _ = torch.sort(torch.cat(
-            [z, surface_zvals(gt_depth, rcfg.N_surface)], dim=-1), dim=-1)
+            [z, surface_zvals(gt_depth, rcfg.N_surface, depth_max)],
+            dim=-1), dim=-1)
     raw = _field(decoder, rays_o, rays_d, z, bound, c_grid, stage)
     depth, var, color, weights = raw2outputs(raw, z, rays_d, rcfg.occupancy)
     if rcfg.N_importance > 0:

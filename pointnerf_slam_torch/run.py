@@ -41,6 +41,17 @@ next resumes. A supervised run that completes a synthetic sequence is
 scored by scripts/eval_room_bench_torch.sh (the port's tools; no JAX)
 into <output>/eval_metrics.txt unless --no_eval; a failed evaluation
 makes the supervisor return non-zero.
+
+Several devices (parallel.data_devices): a plain start whose data_devices
+resolves to n > 1 (on CUDA "auto" is every local card and an int is
+clamped to their count; on the CPU an int is taken as given and "auto" is
+one) starts itself again as n processes through `python -m
+torch.distributed.run --standalone --nproc_per_node n`, and the
+supervisor starts its attempts that way. Under such a launcher
+(WORLD_SIZE > 1) main joins the default process group, NCCL on the card
+cuda:LOCAL_RANK with --device cuda, gloo with --device cpu; the mapper
+splits its rays over the ranks (engine/mapper.py), and only rank 0 prints
+and writes outputs.
 """
 
 from __future__ import annotations
@@ -53,10 +64,12 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .engine import PointNeRFSLAM
 from .io.config import load_config
 from .outputs import attach_outputs
+from .parallel.mapping import resolve_data_devices
 from .tools.eval_ate import evaluate_ate, latest_checkpoint
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -99,6 +112,44 @@ def checkpoint_index(path) -> int:
     return int(os.path.basename(path).split(".")[0]) if path else -1
 
 
+def launch_size(cfg, device: str) -> int:
+    """Processes a plain start runs: parallel.data_devices resolved against
+    the local cards (--device cuda) or with no device count (--device
+    cpu: the int as given, "auto" one)."""
+    want = (cfg.get("parallel", {}) or {}).get("data_devices", "auto")
+    return resolve_data_devices(
+        want, torch.cuda.device_count() if device == "cuda" else None)
+
+
+def module_cmd(n: int) -> list:
+    """The command that runs this module as n processes (n > 1: through
+    torch.distributed.run on one node)."""
+    if n <= 1:
+        return [sys.executable, "-m", "pointnerf_slam_torch.run"]
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", str(n), "-m", "pointnerf_slam_torch.run"]
+
+
+def module_env() -> dict:
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+
+
+def join_group(device: str) -> str:
+    """Join the default process group of a launcher's environment (RANK,
+    WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT). Returns this rank's
+    device: cuda:LOCAL_RANK under NCCL, or the CPU under gloo."""
+    if device == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass --device cpu")
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        torch.cuda.set_device(local)
+        dist.init_process_group("nccl", device_id=torch.device("cuda", local))
+        return f"cuda:{local}"
+    dist.init_process_group("gloo")
+    return "cpu"
+
+
 def supervise(args) -> int:
     """Run the sequence as subprocesses of this module, each resuming from
     the latest checkpoint; again after a failure, up to args.max_restarts
@@ -112,16 +163,15 @@ def supervise(args) -> int:
     total = len(get_dataset(cfg))
     if args.n_frames:
         total = min(total, args.n_frames)
-    base = [sys.executable, "-m", "pointnerf_slam_torch.run", args.config,
-            "--device", args.device, "--output", out]
+    base = module_cmd(launch_size(cfg, args.device)) + [
+        args.config, "--device", args.device, "--output", out]
     if args.input_folder:
         base += ["--input_folder", args.input_folder]
     if args.profile:
         base += ["--profile", args.profile]
     if args.live_vis:
         base.append("--live_vis")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    env = module_env()
     chunk = args.frames_per_attempt
     # a supervisor started again continues from the run's own checkpoints
     resume = args.resume or latest_checkpoint(out)
@@ -203,20 +253,38 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     if args.max_restarts > 0:
         return supervise(args)
     cfg = load_config(args.config)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        device = join_group(args.device)
+        try:
+            return run(args, cfg, device)
+        finally:
+            dist.destroy_process_group()
+    n = launch_size(cfg, args.device)
+    if n > 1:
+        print(f"parallel.data_devices: {n} processes", flush=True)
+        return subprocess.run(module_cmd(n) + argv,
+                              env=module_env()).returncode
+    return run(args, cfg, args.device)
+
+
+def run(args, cfg, device: str) -> int:
+    """One process's run of the sequence (rank 0 prints and writes)."""
     if args.input_folder:
         cfg["data"]["input_folder"] = args.input_folder
     if args.no_final_refine:
         cfg["mapping"]["color_refine"] = False
         cfg["meshing"]["eval_rec"] = False
         cfg["meshing"]["final_mesh"] = False
-    slam = PointNeRFSLAM(cfg, n_frames_cap=args.n_frames,
-                         device=args.device, output=args.output)
+    slam = PointNeRFSLAM(cfg, n_frames_cap=args.n_frames, device=device,
+                         output=args.output)
+    rank = slam.group.rank
     attach_outputs(slam)
-    if args.live_vis:
+    if args.live_vis and rank == 0:
         from .outputs.live_view import LiveViewer
         slam.aux_visualizers.append(
             LiveViewer(slam.output, freq=cfg["mapping"]["vis_freq"]))
@@ -224,12 +292,13 @@ def main(argv=None) -> int:
     if args.resume:
         from .outputs.logger import resume_slam
         start = resume_slam(slam, args.resume)
-        print(f"resumed from {args.resume}; continuing at frame {start}",
-              flush=True)
+        if rank == 0:
+            print(f"resumed from {args.resume}; continuing at frame "
+                  f"{start}", flush=True)
     t0 = time.time()
 
     def on_frame(s, idx):
-        if s.frame_log and s.frame_log[-1]["idx"] == idx:
+        if rank == 0 and s.frame_log and s.frame_log[-1]["idx"] == idx:
             print(frame_line(s.frame_log[-1]), flush=True)
 
     if args.profile:
@@ -243,12 +312,15 @@ def main(argv=None) -> int:
             est, gt = slam.run(start, on_frame=on_frame)
             if slam.device.type == "cuda":
                 torch.cuda.synchronize()
-        print(f"profiler trace in {args.profile}", flush=True)
+        if rank == 0:
+            print(f"profiler trace in {args.profile}", flush=True)
     else:
         est, gt = slam.run(start, on_frame=on_frame)
     if slam.device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.time() - t0
+    if rank != 0:
+        return 0
     err = trajectory_errors(est, gt)
     print(f"done: frames {start}..{slam.n_img - 1} in {wall:.1f} s "
           f"on {slam.device}; translation RMSE against gt over frames "

@@ -308,11 +308,13 @@ def per_iter_mapper_draws(key, max_frames, iters):
     return out
 
 
-def field_change(tree, p_j, dec, jcfg):
+def field_change(tree, p_j, dec, jcfg, pts=None):
     """(cosine, norm ratio) of the port's and the reference's change of the
-    decoder output at points of the mapped volume."""
+    decoder output at points of the mapped volume (or at pts (N, 3))."""
     from pointnerf_slam_tpu.models.decoders import apply_mlp
-    pts = np.random.default_rng(3).uniform(-0.4, 0.4, (512, 3)) + [0, 0, 1]
+    if pts is None:
+        pts = np.random.default_rng(3).uniform(-0.4, 0.4, (512, 3)) \
+            + [0, 0, 1]
     pts = pts.astype(np.float32)
     f0 = np.asarray(apply_mlp(tree, jcfg, pts), np.float64)
     d_j = np.asarray(apply_mlp(p_j, jcfg, pts), np.float64) - f0

@@ -123,15 +123,25 @@ def test_cuda_request_without_card_raises():
     pytest.param(lambda c: c["mapping"].update(
         frustum_feature_selection=True), "item 11", id="<lambda>-item 11"),
 ])
-def test_unported_modes_raise(edit, match):
-    """The one mode left unported, multi-device mapping (parallel/,
-    ROADMAP Queue 1 item 11), is refused whatever else the config selects:
-    NICE, overlap keyframes, frustum masks, or none of them (`match`
-    names the case; test_ported_modes_construct runs them)."""
+def test_unported_modes_raise(edit, match, monkeypatch):
+    """Multi-device mapping (parallel/, ROADMAP Queue 1 item 11) is ported
+    now, whatever else the config selects: NICE, overlap keyframes,
+    frustum masks, or none of them (`match` names the case;
+    test_ported_modes_construct runs them). parallel.data_devices 4
+    without a process group maps on one device; what is refused is a
+    group of more ranks than data_devices resolves to (here a two-rank
+    group with data_devices 1), whose other rank would map apart."""
+    import pointnerf_slam_torch.engine.system as S
+    from pointnerf_slam_torch.parallel import DataGroup
     cfg = box_cfg()
     edit(cfg)
     cfg["parallel"] = {"data_devices": 4}
-    with pytest.raises(NotImplementedError, match="multi-device.*item 11"):
+    slam = PointNeRFSLAM(cfg, n_frames_cap=2, device="cpu")
+    assert slam.group.world_size == 1 and slam.group.rank == 0
+    cfg["parallel"] = {"data_devices": 1}
+    monkeypatch.setattr(S, "make_mesh", lambda device=None: DataGroup(
+        None, 0, 2, torch.device("cpu")))
+    with pytest.raises(ValueError, match="map apart"):
         PointNeRFSLAM(cfg, n_frames_cap=2, device="cpu")
 
 
