@@ -36,6 +36,15 @@ Phases, in order; any failure raises and the script exits non-zero:
   4. engine: the bench workload (680x1200, 6-frame window) through the
      port's tracker (50 iterations, K=5) and fused-outer mapper (3 x 100,
      K=4, no BA); ms per iteration; losses finite and falling
+  4b. bench: `python3 bench_torch.py` (bench.py's workload and line) as a
+     subprocess: its last line holds exactly bench.py's keys, its metric
+     name and unit, a finite value > 0 and vs_baseline = round(value /
+     BASELINE_FPS, 2); then the workload in this process from the initial
+     decoder, 3 cycles synced between the tracker and the mapper (ms per
+     iteration of each) and 3 as the bench times them: the cycle's wall
+     against 50 t_track + 300 t_map and the unsplit remainder; every
+     cycle launches K2 85 times (10 tracker + 75 mapper pixel batches), K1
+     mapper 300 and K1 tracker 50
   5. system, sensor depth: PointNeRFSLAM on room_bench.yaml at full
      680x1200 width with the flagship schedule (fused_outer, K=4/5) for
      frames 0..5, colour refine off, the mesher attached
@@ -145,7 +154,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      not counted.
  11. the launch counts of phases 4-10f, each path counted from 0 (every
      kernel must have launched on the main paths; K1/K2 on the sensor,
-     weak, resume, readers and parallel paths; K3/K4 on the
+     bench, weak, resume, readers and parallel paths; K3/K4 on the
      handle_dynamic tracker, mapper two-kernel and dynamic paths)
  11a. run.py: python -m pointnerf_slam_torch.run on the readers phase's
      TUM fixture (a generated config inheriting tum_imap.yaml with its
@@ -268,6 +277,12 @@ PAR_CHECK_ITERS = 20        # parallel: iterations per outer of the NCCL
 PAR_ITERS = 100             # parallel: iterations per outer, 3 outers
 PAR_FRAMES = 6              # parallel: room_bench frames 0..5
 PAR_TIMEOUT = 300           # parallel: seconds for a phase's ranks
+SHIFTED_CAM0 = (1.0, 0.0, 0.0, 0.0, 0.02, 0.0, 2.5)   # engine: tracker start
+BENCH_TIMEOUT = 300         # bench: seconds for python3 bench_torch.py
+# bench: launches per cycle from the schedule: K2 once per pixel batch
+# (50 / 5 tracker + 3 x 100 / 4 mapper), K1 once per iteration
+BENCH_LAUNCHES = {"p1_sigma": 85, "fused_vg_mapper": 300,
+                  "fused_vg_tracker": 50}
 
 
 def card() -> str:
@@ -1123,33 +1138,20 @@ def phase_kernels_mlp(torch, report, dec, cell, rays_of, bound,
 
 
 def bench_data(torch):
-    """The bench workload's inputs on the card: a random 680x1200 frame,
-    its 6-slot window (3 outers), cameras, masks and the AABB."""
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(1)
-    color = torch.rand(H, W, 3, generator=g, device=dev)
-    depth = 0.5 + 2.5 * torch.rand(H, W, generator=g, device=dev)
-    color_u8 = (color * 255).to(torch.uint8)
-    Fn = 6
-    return dict(
-        color=color, depth=depth, colors=color_u8.expand(3, Fn, H, W, 3),
-        depths=depth.expand(3, Fn, H, W),
-        cams=torch.tensor([1.0, 0, 0, 0, 0, 0, 2.5], device=dev).expand(
-            3, Fn, 7).contiguous(),
-        valid=torch.ones(3, Fn, dtype=torch.bool, device=dev),
-        ba=torch.zeros(3, Fn, dtype=torch.bool, device=dev),
-        bound=torch.tensor([[-3.5, 3.5]] * 3, device=dev))
+    """The bench workload's inputs on the card (bench_torch.make_inputs):
+    a random 680x1200 frame, its 6-slot window (3 outers), cameras, masks
+    and the AABB, with the tracker starting SHIFTED_CAM0, 2 cm off the
+    window's camera (the smoke's "loss falls" checks need a gap to close;
+    bench_torch.py, as bench.py, starts the tracker on that camera)."""
+    import bench_torch
+    return bench_torch.make_inputs(torch.device("cuda"), cam0=SHIFTED_CAM0)
 
 
 def bench_ecfg(**over):
-    from pointnerf_slam_torch.engine.state import EngineConfig
-    kw = dict(H=H, W=W, fx=FX, fy=FX, cx=CX, cy=CY, tracking_pixels=5000,
-              num_cam_iters=50, cam_lr=1e-3, mapping_pixels=5000,
-              mapping_window_size=5, weak_depth=False,
-              depth_supervision=True, no_ba_fast=True, w_beyond_loss=1.0,
-              map_resample_every=4, track_resample_every=5)
-    kw.update(over)
-    return EngineConfig(**kw)
+    """bench_torch's EngineConfig with the smoke's w_beyond_loss 1.0 (the
+    flagship's; bench_torch.py keeps bench.py's 0.0), then `over`."""
+    import bench_torch
+    return bench_torch.engine_config(**{"w_beyond_loss": 1.0, **over})
 
 
 def bench_engine(torch, dec, tracker_iters=50, map_inner=100, mcfg=None,
@@ -1174,11 +1176,10 @@ def bench_engine(torch, dec, tracker_iters=50, map_inner=100, mcfg=None,
     track = make_tracking_step(mcfg, rcfg, ecfg)
     mapper = (make_mapper_step(mcfg, rcfg, ecfg, 6, outer_fused=True)
               if map_inner else None)
-    cam0 = torch.tensor([1.0, 0, 0, 0, 0.02, 0, 2.5], device=dev)
     torch.cuda.synchronize()
     l0 = dict(F.launches)
     t0 = time.time()
-    _, _, _, tl = track(dec, cam0, d["color"], d["depth"], d["bound"],
+    _, _, _, tl = track(dec, d["cam0"], d["color"], d["depth"], d["bound"],
                         draws)
     torch.cuda.synchronize()
     t1 = time.time()
@@ -1216,6 +1217,113 @@ def phase_engine(torch):
     print(f"engine: tracker {t_ms:.2f} ms/iter (loss {float(tl[0]):.1f} -> "
           f"{float(tl[-1]):.1f}), mapper {m_ms:.2f} ms/iter (loss "
           f"{float(ml[0]):.1f} -> {float(ml[-1]):.1f})", flush=True)
+
+
+def phase_bench(torch):
+    """bench_torch.py, the port's bench.py: run as a user runs it (a
+    subprocess), its last line parsed and checked; then its workload in
+    this process, cycle by cycle from the initial decoder: 3 cycles with a
+    sync between the tracker and the mapper (ms per iteration of each), 3
+    cycles as the bench times them (wall, ending in the host read of the
+    last loss), so the wall stands against 50 t_track + 300 t_map and the
+    unsplit remainder (all after one warm-up cycle, as the bench's); the
+    kernels' launches of every cycle equal BENCH_LAUNCHES. Returns the
+    numbers printed."""
+    import math
+    import bench_torch as B
+    from pointnerf_slam_torch.models.decoders import IMAPDecoder
+    from pointnerf_slam_torch.ops import fused_vg as F
+    t0 = time.time()
+    res = subprocess.run([sys.executable, os.path.join(HERE,
+                                                       "bench_torch.py")],
+                         cwd=HERE, capture_output=True, text=True,
+                         timeout=BENCH_TIMEOUT)
+    sub_s = time.time() - t0
+    lines = res.stdout.strip().splitlines()
+    if res.returncode != 0 or not lines:
+        fail(f"bench: bench_torch.py exited {res.returncode}: "
+             f"{res.stdout[-2000:]} {res.stderr[-2000:]}")
+    try:
+        line = json.loads(lines[-1])
+    except json.JSONDecodeError:
+        fail(f"bench: last line is not JSON: {lines[-1]!r}")
+    value = line.get("value")
+    ok = (set(line) == {"metric", "value", "unit", "vs_baseline"}
+          and line["metric"] == B.METRIC and line["unit"] == "frames/s"
+          and isinstance(value, (int, float)) and math.isfinite(value)
+          and value > 0
+          and line["vs_baseline"] == round(value / B.BASELINE_FPS, 2))
+    print(f"bench: python3 bench_torch.py in {sub_s:.1f} s: {lines[-1]} "
+          f"(BASELINE_FPS {B.BASELINE_FPS:.6f})", flush=True)
+    if not ok:
+        fail(f"bench: bad result line {lines[-1]!r}")
+
+    dev = torch.device("cuda")
+    mcfg = B.model_config()
+    track, mapper = B.make_steps(mcfg, B.render_config(), B.engine_config())
+    d = B.make_inputs(dev)
+    dec = IMAPDecoder(mcfg, torch.Generator().manual_seed(0)).to(dev)
+    initial = {k: v.clone() for k, v in dec.state_dict().items()}
+    n_map = B.N_OUTER * B.MAP_INNER
+    split, walls, per_cycle = [], [], []
+
+    def launched(l0):
+        return {k: F.launches[k] - l0[k] for k in l0
+                if F.launches[k] != l0[k]}
+
+    l0 = dict(F.launches)
+    float(B.one_cycle(track, mapper, dec, d, B.draws_for(dev, 2))[2][-1])
+    per_cycle.append(launched(l0))                      # the warm-up
+    for mode in ("split", "whole"):
+        dec.load_state_dict(initial)
+        for i in range(B.N_CYCLES):
+            draws = B.draws_for(dev, 3 + i)
+            torch.cuda.synchronize()
+            l0 = dict(F.launches)
+            t0 = time.perf_counter()
+            if mode == "split":
+                _, _, _, tl = track(dec, d["cam0"], d["color"], d["depth"],
+                                    d["bound"], draws)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                _, ml = mapper(dec, d["colors"], d["depths"], d["cams"],
+                               d["valid"], d["ba"], d["bound"], draws,
+                               B.MAP_INNER)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                split.append(((t1 - t0) * 1e3 / B.TRACK_ITERS,
+                              (t2 - t1) * 1e3 / n_map))
+            else:
+                _, tl, ml = B.one_cycle(track, mapper, dec, d, draws)
+                float(ml[-1])                   # the bench's sync point
+                walls.append((time.perf_counter() - t0) * 1e3)
+            if not (bool(torch.isfinite(tl).all())
+                    and bool(torch.isfinite(ml).all())):
+                fail(f"bench: {mode} cycle {i}: losses not finite")
+            per_cycle.append(launched(l0))
+    bad = [c for c in per_cycle if c != BENCH_LAUNCHES]
+    if bad:
+        fail(f"bench: launches per cycle {bad}, the schedule gives "
+             f"{BENCH_LAUNCHES}")
+    t_track = sum(t for t, _ in split) / len(split)
+    t_map = sum(m for _, m in split) / len(split)
+    wall = sum(walls) / len(walls)
+    parts = B.TRACK_ITERS * t_track + n_map * t_map
+    split_ms = [tuple(round(x, 4) for x in c) for c in split]
+    walls_ms = [round(w, 2) for w in walls]
+    print(f"bench: in process, {B.N_CYCLES} cycles each way: tracker "
+          f"{t_track:.4f} ms/iter, mapper {t_map:.4f} ms/iter (cycles "
+          f"synced between the two: {split_ms}); cycle wall {wall:.2f} ms "
+          f"({walls_ms}, "
+          f"{B.FRAMES_PER_CYCLE * 1e3 / wall:.4f} frames/s) against "
+          f"{B.TRACK_ITERS} t_track + {n_map} t_map = {parts:.2f} ms, "
+          f"unsplit remainder {wall - parts:.2f} ms "
+          f"({100 * (wall - parts) / wall:.2f}%); launches per cycle "
+          f"{per_cycle[0]} (all {len(per_cycle)} cycles, the warm-up's "
+          f"too, equal the schedule)",
+          flush=True)
+    return {"value": value, "t_track": t_track, "t_map": t_map,
+            "wall": wall, "remainder": wall - parts}
 
 
 def phase_engine_dynamic(torch):
@@ -2895,6 +3003,7 @@ def main() -> int:
     mk = ("megakernel_fwd", "megakernel_bwd")
     paths = (("sensor", lambda: (phase_engine(torch), phase_system(torch))[1],
               k1),
+             ("bench", lambda: phase_bench(torch), k1),
              ("dynamic tracker", lambda: phase_engine_dynamic(torch), mk),
              ("mesh", lambda: phase_mesh(torch, slam), ("fused_mlp_fwd",)),
              ("plain", lambda: phase_engine_plain(torch),

@@ -4,6 +4,8 @@ bar.
 
   python scripts/flagship_seeds_torch.py [--config YAML] [--seeds 1 2]
       [--device cuda|cpu] [--max_frames N] [--summary FILE]
+  python scripts/flagship_seeds_torch.py --tally SUMMARY [SUMMARY ...]
+      [--earlier SEED=ATE ...]
 
 For each seed, builds the port's PointNeRFSLAM on the config (default
 configs/Synthetic/room_bench_weak.yaml, the 500-frame flagship) with the
@@ -16,9 +18,15 @@ touched. Per seed it prints the translation error of frames 15-35, the
 frame-30 two-view solve from the front-end's telemetry (inliers,
 candidates, parallax), the first frame whose solve the step gate
 rejected, the wall seconds and the Horn-aligned ATE (tools/eval_ate.py:
-RMSE, mean, median, max); with --summary it also writes them as JSON.
-The 3D and 2D scoring of scripts/eval_room_bench_torch.sh is left out.
-Prewarm the frame cache first (scripts/prewarm_synth_cache_torch.py).
+RMSE, mean, median, max); it ends with k of n seeds meeting the bar and
+the rate's 95% Clopper-Pearson interval, and with --summary it also writes
+them as JSON. The 3D and 2D scoring of scripts/eval_room_bench_torch.sh is
+left out. Prewarm the frame cache first
+(scripts/prewarm_synth_cache_torch.py).
+
+--tally counts the seeds of several summaries (runs made side by side,
+one process each) and of --earlier SEED=ATE pairs (runs recorded
+elsewhere) and prints k of n with the interval.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from pointnerf_slam_torch.engine.state import Draws  # noqa: E402
 from pointnerf_slam_torch.io.config import load_config  # noqa: E402
 from pointnerf_slam_torch.outputs import attach_outputs  # noqa: E402
 from pointnerf_slam_torch.tools.eval_ate import evaluate_ate  # noqa: E402
+from frame30_rate import interval  # noqa: E402  (scripts/, beside this one)
 
 BAR_M = 0.10   # the flagship's ATE bar (PERF.md section 2)
 
@@ -64,6 +73,29 @@ def first_step_rejection(telemetry):
                             "step_median": rec.get("step_median")}
                 break
     return out
+
+
+def rate_line(ates: dict) -> str:
+    """k of n seeds meeting the bar, and the rate's interval."""
+    k = sum(a <= BAR_M for a in ates.values())
+    lo, hi = interval(k, len(ates))
+    return (f"{k} of {len(ates)} seeds met ATE <= {BAR_M} m; 95% "
+            f"Clopper-Pearson interval of the rate [{lo:.4f}, {hi:.4f}]")
+
+
+def tally(paths, earlier) -> int:
+    ates = {}
+    for path in paths:
+        with open(path) as fh:
+            for r in json.load(fh)["seeds"]:
+                ates[r["seed"]] = r["ate"]["rmse"]
+    for item in earlier:
+        seed, ate = item.split("=")
+        ates[int(seed)] = float(ate)
+    for s in sorted(ates):
+        print(f"seed {s}: ATE RMSE {ates[s]:.6f} m", flush=True)
+    print(rate_line(ates), flush=True)
+    return 0
 
 
 def run_seed(config: str, seed: int, device: str, max_frames) -> dict:
@@ -100,7 +132,13 @@ def main() -> int:
     ap.add_argument("--max_frames", type=int, default=None)
     ap.add_argument("--summary", default=None,
                     help="write the per-seed results here as JSON")
+    ap.add_argument("--tally", nargs="+", default=None, metavar="SUMMARY",
+                    help="count these summaries' seeds instead of running")
+    ap.add_argument("--earlier", nargs="*", default=[], metavar="SEED=ATE",
+                    help="with --tally: seeds run elsewhere, ATE in metres")
     args = ap.parse_args()
+    if args.tally:
+        return tally(args.tally, args.earlier)
     results = []
     for s in args.seeds:
         r = run_seed(args.config, s, args.device, args.max_frames)
@@ -118,14 +156,21 @@ def main() -> int:
               f"rejection {r['first_step_rejection'] or 'none'}", flush=True)
         results.append(r)
     k = sum(r["meets_bar"] for r in results)
-    print(f"{k} of {len(results)} seeds met ATE <= {BAR_M} m", flush=True)
+    lo, hi = interval(k, len(results))
+    print(rate_line({r["seed"]: r["ate"]["rmse"] for r in results}),
+          flush=True)
     if args.summary:
         os.makedirs(os.path.dirname(os.path.abspath(args.summary)),
                     exist_ok=True)
         with open(args.summary, "w") as fh:
-            json.dump(results, fh, indent=1, default=float)
-    print(json.dumps([{"seed": r["seed"], "ate_rmse": r["ate"]["rmse"],
-                       "solve_30": r["solve_30"]} for r in results],
+            json.dump({"seeds": results, "k": k, "n": len(results),
+                       "bar_m": BAR_M, "interval95": [lo, hi]}, fh,
+                      indent=1, default=float)
+    print(json.dumps({"seeds": [{"seed": r["seed"],
+                                 "ate_rmse": r["ate"]["rmse"],
+                                 "solve_30": r["solve_30"]}
+                                for r in results],
+                      "k": k, "n": len(results), "interval95": [lo, hi]},
                      default=float))
     return 0
 

@@ -194,12 +194,24 @@ def test_config_loads_equal(path):
 
 
 def test_port_imports_no_jax_and_no_reference_package():
-    """The port and chip_smoke.py import torch, never JAX, and name nothing
-    of the JAX package."""
+    """The port, chip_smoke.py, bench_torch.py and the port's scripts
+    (scripts/*_torch.py, scripts/torch_*.py) import torch, never JAX, and
+    name nothing of the JAX package. The scripts that compare the two
+    packages on purpose (track_compare.py, frame30_rate.py,
+    nice_track_witness.py) are not the port's."""
     files = glob.glob(os.path.join(REPO, "pointnerf_slam_torch", "**",
                                    "*.*"), recursive=True)
     files = [f for f in files if f.endswith((".py", ".cu", ".cuh"))]
-    files.append(os.path.join(REPO, "chip_smoke.py"))
+    scripts = sorted(glob.glob(os.path.join(REPO, "scripts", "*_torch.py"))
+                     + glob.glob(os.path.join(REPO, "scripts",
+                                              "torch_*.py")))
+    assert {os.path.basename(f) for f in scripts} >= {
+        "flagship_seeds_torch.py", "prewarm_synth_cache_torch.py",
+        "sweep_superpoint_torch.py", "torch_kernel_compare.py",
+        "torch_kernel_profile.py"}
+    files += scripts
+    files += [os.path.join(REPO, "chip_smoke.py"),
+              os.path.join(REPO, "bench_torch.py")]
     assert len(files) > 20
     bad_import = re.compile(r"^\s*(import|from)\s+jax\b", re.M)
     for f in files:

@@ -87,6 +87,25 @@ def mapper_draws(key, max_frames, outers=O, iters=MAP_ITERS):
 
 
 def test_tracker_then_mapper_match_reference():
+    tracker_then_mapper(w_beyond=1.0)
+
+
+def test_tracker_then_mapper_without_beyond_term_match_reference():
+    """The same at w_beyond_loss 0.0, EngineConfig's default and
+    bench_torch.py's: the fused-outer mapper on K1 without the beyond
+    term. Both mappers map the window with the reference's tracked camera:
+    at 0.0 the losses are about half as large, and the reference's own
+    mapper losses move by about the loss bound between its tracked camera
+    and the port's (which the tracker's bound lets differ), so chaining
+    each package's own camera would measure the handoff, not the
+    mapper."""
+    tracker_then_mapper(w_beyond=0.0, shared_window=True)
+
+
+def tracker_then_mapper(w_beyond: float, shared_window: bool = False):
+    """shared_window: the port's mapper maps the window with the
+    reference's tracked camera instead of its own."""
+    ecfg = dict(ECFG, w_beyond_loss=w_beyond)
     jcfg = JCfg(dim=3, c_dim=0, color=True, hidden_size=256, skips=(),
                 n_blocks=4)
     tree = jax.tree_util.tree_map(np.asarray,
@@ -100,9 +119,9 @@ def test_tracker_then_mapper_match_reference():
     cam0 = np.array([1.0, 0.01, 0, 0, 0.02, 0, 2.5], np.float32)
 
     # --- tracker on frame 1
-    jtrack = j_tracker(jcfg, JRC(), JEC(**ECFG, megakernel="on"))
+    jtrack = j_tracker(jcfg, JRC(), JEC(**ecfg, megakernel="on"))
     ttrack = make_tracking_step(MLPConfig(), RenderConfig(),
-                                EngineConfig(**ECFG))
+                                EngineConfig(**ecfg))
     k_track = jax.random.PRNGKey(1)
     color1 = colors[1].astype(np.float32) / 255.0
     bc_j, bl_j, fl_j = jtrack(tree, {}, cam0, color1, depths[1], BOUND,
@@ -116,13 +135,14 @@ def test_tracker_then_mapper_match_reference():
     np.testing.assert_allclose(bc_t.numpy(), np.asarray(bc_j), atol=1e-3)
 
     # --- mapper: window [frame 0 at gt, frame 1 at its tracked camera]
-    jmap = j_mapper(jcfg, JRC(), JEC(**ECFG, megakernel="on"), F,
+    jmap = j_mapper(jcfg, JRC(), JEC(**ecfg, megakernel="on"), F,
                     outer_fused=True)
     tmap = make_mapper_step(MLPConfig(), RenderConfig(),
-                            EngineConfig(**ECFG), F, outer_fused=True)
+                            EngineConfig(**ecfg), F, outer_fused=True)
     k_map = jax.random.PRNGKey(2)
     cams_j = np.stack([cam_gt, np.asarray(bc_j)])
-    cams_t = torch.stack([T(cam_gt), bc_t])
+    cams_t = torch.stack([T(cam_gt), T(np.asarray(bc_j)) if shared_window
+                          else bc_t])
     rep = lambda a: np.broadcast_to(a, (O,) + a.shape).copy()
     valid = np.ones((O, F), bool)
     ba = np.zeros((O, F), bool)

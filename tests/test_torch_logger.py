@@ -11,6 +11,7 @@ JAX package on the CPU.
   reference finishes the run from the port's checkpoint.
 - The supervisor: run.py --max_restarts 1 --frames_per_attempt 2 on a
   4-frame box.yaml run in two attempts, the second resumed.
+- scripts/check_run_health.py (numpy only) on the port's weak checkpoint.
 
 The sensor runs use tests/test_engine.py's tiny_cfg (40x52, a 32-wide
 decoder: the port's plain branch) with the camera at gt; the weak runs
@@ -378,6 +379,38 @@ def test_port_weak_checkpoint_restores_in_reference(tmp_path, weak_runs):
     assert_pseudo_restored(jslam, slam)
     assert jslam.keyframes.frame_idx == slam.keyframes.frame_idx
     assert_frontend_restored(jslam.frontend, slam.frontend)
+
+
+# -- scripts/check_run_health.py on the port's checkpoint ------------------
+
+@pytest.mark.parametrize("track_every", [5, 1])
+def test_check_run_health_reads_port_checkpoint(weak_runs, capsys,
+                                                track_every):
+    """The numpy-only run-health check reads the port's weak checkpoint
+    (frame 8): every track_every-th pose up to it, and (with at least 3
+    poses) the frame-0-anchored ATE proxy of the run's own estimates and
+    the carried front-end scale."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "check_run_health", os.path.join(REPO, "scripts",
+                                         "check_run_health.py"))
+    health = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(health)
+    slam, path = weak_runs["torch"]
+    health.main(os.path.dirname(os.path.dirname(path)), track_every)
+    out = capsys.readouterr().out
+    n = len(range(0, WEAK_AT + 1, track_every))
+    assert f"ckpt {os.path.basename(path)}  frame {WEAK_AT}  ({n} tracked " \
+        f"poses)" in out
+    if n < 3:
+        assert "ATE proxy" not in out
+        return
+    est = slam.estimate_c2w_list[:WEAK_AT + 1:track_every, :3, 3]
+    gt = slam.gt_c2w_list[:WEAK_AT + 1:track_every, :3, 3]
+    ate = np.sqrt(np.mean(np.sum((est - gt) ** 2, axis=1)))
+    assert f"ATE proxy (frame-0 anchored RMSE): {ate * 1e3:.1f} mm" in out
+    assert f"carried depth_scale {float(slam.frontend.depth_scale):.4f}" \
+        in out
 
 
 # -- the supervisor -----------------------------------------------------------
