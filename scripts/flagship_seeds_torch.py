@@ -4,6 +4,7 @@ bar.
 
   python scripts/flagship_seeds_torch.py [--config YAML] [--seeds 1 2]
       [--device cuda|cpu] [--max_frames N] [--summary FILE]
+      [--ckpt_freq N] [--steps]
   python scripts/flagship_seeds_torch.py --tally SUMMARY [SUMMARY ...]
       [--earlier SEED=ATE ...]
 
@@ -24,6 +25,18 @@ them as JSON. The 3D and 2D scoring of scripts/eval_room_bench_torch.sh is
 left out. Prewarm the frame cache first
 (scripts/prewarm_synth_cache_torch.py).
 
+--ckpt_freq N sets the checkpoint logger's frequency in memory (the
+YAML's mapping.ckpt_freq stays as it is; the logger checkpoints mapping
+frames only, so 5 checkpoints every tracked frame of the flagship), each
+run's checkpoints under output/flagship_seed{s}/ckpts/. --steps prints,
+per tracked frame, the front-end's accepted step step_d (or the gate that
+rejected the solve, with the step), the true step |gt[k] - gt[k - 5]| and
+their ratio, the step-history gate's median (the median of the last 10
+accepted steps, once there are 3), and the steps of the motion prior, the
+two-view solve and the NeRF refine (scale telemetry) from the previous
+tracked frame's refined centre, each against the true step; the summary
+holds the series under "steps".
+
 --tally counts the seeds of several summaries (runs made side by side,
 one process each) and of --earlier SEED=ATE pairs (runs recorded
 elsewhere) and prints k of n with the interval.
@@ -37,6 +50,7 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
@@ -75,6 +89,76 @@ def first_step_rejection(telemetry):
     return out
 
 
+def step_series(fe_telemetry, scale_telemetry, gt_centers,
+                track_every: int, hist_len: int = 10) -> list:
+    """One record per tracked frame of the front-end's continuous solves:
+    idx; step_d (the accepted step, None when a gate rejected the solve);
+    rejected ("rejected_step" or "rejected_step_abs") with the rejected
+    step; true_step |gt[idx] - gt[idx - track_every]| and step_d's ratio
+    to it; gate_median, the median of the last hist_len accepted steps
+    before idx (None below 3, where the gate does not act); and prior_step,
+    solve_step and refined_step, the distances of the scale telemetry's
+    c_prior, c_solve and c_refined from the previous tracked frame's
+    c_refined, each with its ratio to true_step."""
+    stel = {int(r["idx"]): r for r in scale_telemetry}
+    hist, out = [], []
+    for rec in fe_telemetry:
+        if "ref_idx" not in rec and "rejected_step" not in rec \
+                and "rejected_step_abs" not in rec:
+            continue                     # the bootstrap's record
+        idx = int(rec["idx"])
+        if out and out[-1]["idx"] == idx:
+            row = out[-1]                # a gate's record after the solve
+        else:
+            true = float(np.linalg.norm(
+                np.asarray(gt_centers[idx])
+                - np.asarray(gt_centers[idx - track_every])))
+            row = {"idx": idx, "step_d": None, "rejected": None,
+                   "true_step": true, "ratio": None,
+                   "gate_median": float(np.median(hist))
+                   if len(hist) >= 3 else None}
+            st, prev = stel.get(idx, {}), stel.get(idx - track_every, {})
+            for k in ("prior", "solve", "refined"):
+                c, c0 = st.get(f"c_{k}"), prev.get("c_refined")
+                d = None if c is None or c0 is None else float(
+                    np.linalg.norm(np.asarray(c) - np.asarray(c0)))
+                row[f"{k}_step"] = d
+                row[f"{k}_ratio"] = None if d is None or true <= 0 \
+                    else d / true
+            out.append(row)
+        for key in ("rejected_step", "rejected_step_abs"):
+            if key in rec:
+                row["rejected"] = key
+                row["rejected_step"] = float(rec[key])
+        if "step_d" in rec:
+            row["step_d"] = float(rec["step_d"])
+            if row["true_step"] > 0:
+                row["ratio"] = row["step_d"] / row["true_step"]
+            hist = (hist + [row["step_d"]])[-hist_len:]
+    return out
+
+
+def step_lines(seed: int, rows) -> list:
+    """The --steps table of one seed, a line per tracked frame (mm)."""
+    def mm(v):
+        return "-" if v is None else f"{v * 1000:.2f}"
+
+    def rt(v):
+        return "-" if v is None else f"{v:.3f}"
+
+    out = [f"seed {seed}: frame | step_d mm | true mm | ratio | gate "
+           f"median mm | prior / solve / refined step mm (ratio)"]
+    for r in rows:
+        step = mm(r["step_d"]) if r["rejected"] is None else \
+            f"REJECTED {r['rejected']} {mm(r['rejected_step'])}"
+        out.append(
+            f"seed {seed}: {r['idx']} | {step} | {mm(r['true_step'])} | "
+            f"{rt(r['ratio'])} | {mm(r['gate_median'])} | "
+            + " / ".join(f"{mm(r[k + '_step'])} ({rt(r[k + '_ratio'])})"
+                         for k in ("prior", "solve", "refined")))
+    return out
+
+
 def rate_line(ates: dict) -> str:
     """k of n seeds meeting the bar, and the rate's interval."""
     k = sum(a <= BAR_M for a in ates.values())
@@ -98,14 +182,27 @@ def tally(paths, earlier) -> int:
     return 0
 
 
-def run_seed(config: str, seed: int, device: str, max_frames) -> dict:
+def seed_system(config: str, seed: int, device: str, max_frames,
+                ckpt_freq=None):
+    """The port's system on config with the outputs attached, its
+    front-end's RANSAC generator seeded `seed`, writing into
+    output/flagship_seed{seed}; ckpt_freq replaces the logger's frequency
+    (the loaded config keeps the YAML's)."""
     cfg = load_config(config)
     out = os.path.join("output", f"flagship_seed{seed}")
     slam = PointNeRFSLAM(cfg, n_frames_cap=max_frames, device=device,
                          output=out)
     attach_outputs(slam)
+    if ckpt_freq is not None:
+        slam.logger.ckpt_freq = ckpt_freq
     slam.frontend.draws = Draws(
         torch.Generator(device=slam.device).manual_seed(seed))
+    return slam, out
+
+
+def run_seed(config: str, seed: int, device: str, max_frames,
+             ckpt_freq=None) -> dict:
+    slam, out = seed_system(config, seed, device, max_frames, ckpt_freq)
     t0 = time.time()
     est, gt = slam.run(0)
     if slam.device.type == "cuda":
@@ -120,6 +217,9 @@ def run_seed(config: str, seed: int, device: str, max_frames) -> dict:
             "meets_bar": ate["absolute_translational_error.rmse"] <= BAR_M,
             "t_err_m": terr, "solve_30": solve_at(tel, 30),
             "first_step_rejection": first_step_rejection(tel),
+            "steps": step_series(tel, slam.scale_telemetry,
+                                 slam.gt_c2w_list[:, :3, 3],
+                                 slam.ecfg.track_every_frame),
             "timings": dict(slam.timings), "output": out}
 
 
@@ -132,6 +232,10 @@ def main() -> int:
     ap.add_argument("--max_frames", type=int, default=None)
     ap.add_argument("--summary", default=None,
                     help="write the per-seed results here as JSON")
+    ap.add_argument("--ckpt_freq", type=int, default=None,
+                    help="the logger's checkpoint frequency (in memory)")
+    ap.add_argument("--steps", action="store_true",
+                    help="print the per-tracked-frame step series")
     ap.add_argument("--tally", nargs="+", default=None, metavar="SUMMARY",
                     help="count these summaries' seeds instead of running")
     ap.add_argument("--earlier", nargs="*", default=[], metavar="SEED=ATE",
@@ -141,7 +245,8 @@ def main() -> int:
         return tally(args.tally, args.earlier)
     results = []
     for s in args.seeds:
-        r = run_seed(args.config, s, args.device, args.max_frames)
+        r = run_seed(args.config, s, args.device, args.max_frames,
+                     args.ckpt_freq)
         a = r["ate"]
         print(f"seed {s}: {r['frames']} frames in {r['wall_s']:.1f} s; ATE "
               f"RMSE {a['rmse']:.6f} m (mean {a['mean']:.6f}, median "
@@ -154,6 +259,8 @@ def main() -> int:
             flush=True)
         print(f"seed {s}: frame-30 solve {r['solve_30']}; first step-gate "
               f"rejection {r['first_step_rejection'] or 'none'}", flush=True)
+        if args.steps:
+            print("\n".join(step_lines(s, r["steps"])), flush=True)
         results.append(r)
     k = sum(r["meets_bar"] for r in results)
     lo, hi = interval(k, len(results))

@@ -198,7 +198,8 @@ def test_port_imports_no_jax_and_no_reference_package():
     (scripts/*_torch.py, scripts/torch_*.py) import torch, never JAX, and
     name nothing of the JAX package. The scripts that compare the two
     packages on purpose (track_compare.py, frame30_rate.py,
-    nice_track_witness.py) are not the port's."""
+    nice_track_witness.py, step_replay.py with its draws module
+    replay_draws.py) are not the port's."""
     files = glob.glob(os.path.join(REPO, "pointnerf_slam_torch", "**",
                                    "*.*"), recursive=True)
     files = [f for f in files if f.endswith((".py", ".cu", ".cuh"))]

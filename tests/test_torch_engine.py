@@ -4,7 +4,7 @@ mapping window), against the JAX reference's steps with megakernel="on"
 (Pallas interpret mode on the CPU). The reference's random draws (pixel
 indices, regulation uniforms) are replayed into the port by repeating the
 reference's key splits (tracker.py round_body, mapper.py vg_round /
-mapper_multi_step).
+mapper_multi_step) with scripts/replay_draws.py.
 
 Bounds: tracker first/best loss rtol 2e-2 and best camera within 1e-3
 per component, one Adam step at cam_lr (Adam's normalised step moves a
@@ -16,6 +16,9 @@ minus initial) cosine > 0.98 with norm ratio in [0.9, 1.1], the bound the
 reference uses for two of its own mapper paths (tests/test_fused_vg.py
 test_beyond_loss_mapper_step_parity)."""
 
+import os
+import sys
+
 import jax
 import numpy as np
 import pytest
@@ -24,7 +27,6 @@ import torch
 from pointnerf_slam_tpu.engine.mapper import make_mapper_step as j_mapper
 from pointnerf_slam_tpu.engine.state import EngineConfig as JEC
 from pointnerf_slam_tpu.engine.tracker import make_tracking_step as j_tracker
-from pointnerf_slam_tpu.core.rays import sample_uv_uniform, sample_uv_valid
 from pointnerf_slam_tpu.models.decoders import MLPConfig as JCfg
 from pointnerf_slam_tpu.models.decoders import init_mlp
 from pointnerf_slam_tpu.render.renderer import RenderConfig as JRC
@@ -38,6 +40,10 @@ from pointnerf_slam_torch.models.decoders import (IMAPDecoder, MLPConfig,
 from pointnerf_slam_torch.ops.megakernel import make_fused_render
 from pointnerf_slam_torch.render.renderer import RenderConfig
 from tests.torch_threads import share_cores
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "scripts"))
+from replay_draws import mapper_draws, pixel_draws  # noqa: E402
 
 share_cores()
 
@@ -57,33 +63,6 @@ BOUND = np.array([[-4.0, 4.0]] * 3, np.float32)
 
 def T(a):
     return torch.as_tensor(np.array(a))
-
-
-def tracker_draws(key):
-    """Pixel indices the reference tracker draws, one array per round."""
-    out = []
-    for k in jax.random.split(key, TRACK_ITERS // TRACK_K):
-        k_s, _ = jax.random.split(k)
-        out.append(T(sample_uv_uniform(k_s, W, 0, H, 0, W, N_TRACK)).long())
-    return out
-
-
-def mapper_draws(key, max_frames, outers=O, iters=MAP_ITERS):
-    """(pixel indices (F, ppf) per round, then K regulation uniforms) per
-    outer, as mapper_multi_step -> _run_iters -> vg_round consume them
-    (outers=None: one mapper_step call, no outer split)."""
-    ppf = N_MAP // max_frames
-    out = []
-    keys = [key] if outers is None else jax.random.split(key, outers)
-    for k_o in keys:
-        for k in jax.random.split(k_o, iters // MAP_K):
-            ks = jax.random.split(k, max_frames + 1)
-            out.append(torch.stack([
-                T(sample_uv_uniform(ks[f], W, 0, H, 0, W, ppf)).long()
-                for f in range(max_frames)]))
-            for kk in jax.random.split(ks[-1], MAP_K):
-                out.append(T(jax.random.uniform(kk, (ppf * max_frames, SR))))
-    return out
 
 
 def test_tracker_then_mapper_match_reference():
@@ -128,7 +107,8 @@ def tracker_then_mapper(w_beyond: float, shared_window: bool = False):
                               k_track)
     bc_t, bl_t, fl_t, losses_t = ttrack(
         dec, T(cam0), T(color1), T(depths[1]), T(BOUND),
-        Draws(replay=tracker_draws(k_track)))
+        Draws(replay=pixel_draws(k_track, TRACK_ITERS // TRACK_K, N_TRACK,
+                                 W, H)))
     assert losses_t.shape == (TRACK_ITERS,)
     np.testing.assert_allclose(float(fl_t), float(fl_j), rtol=2e-2)
     np.testing.assert_allclose(float(bl_t), float(bl_j), rtol=2e-2)
@@ -150,7 +130,9 @@ def tracker_then_mapper(w_beyond: float, shared_window: bool = False):
                            valid, ba, BOUND, k_map, MAP_ITERS)
     _, ml_t = tmap(dec, T(rep(colors)), T(rep(depths)),
                    cams_t.expand(O, F, 7), T(valid), T(ba), T(BOUND),
-                   Draws(replay=mapper_draws(k_map, F)), MAP_ITERS)
+                   Draws(replay=mapper_draws(k_map, F, N_MAP // F, SR, W, H,
+                                             MAP_ITERS, MAP_K, outers=O)),
+                   MAP_ITERS)
     assert ml_t.shape == (O * MAP_ITERS,)
     np.testing.assert_allclose(ml_t.numpy(), np.asarray(ml_j), rtol=2e-2)
 
@@ -226,27 +208,13 @@ def test_mapper_bundle_adjustment_matches_reference():
     cams_t, ml_t = make_mapper_step(MLPConfig(), RenderConfig(),
                                     EngineConfig(**cfg), F)(
         dec, T(colors), T(depths), T(cams), T(valid), T(ba), T(BOUND),
-        Draws(replay=mapper_draws(key, F, outers=None)), MAP_ITERS)
+        Draws(replay=mapper_draws(key, F, N_MAP // F, SR, W, H, MAP_ITERS,
+                                  MAP_K)), MAP_ITERS)
     np.testing.assert_allclose(ml_t.numpy(), np.asarray(ml_j), rtol=2e-2)
     np.testing.assert_array_equal(cams_t[0].numpy(), cams[0])
     assert float((cams_t[1] - T(cams[1])).abs().max()) > 1e-3
     np.testing.assert_allclose(cams_t.numpy(), np.asarray(cams_j),
                                atol=1e-3)
-
-
-def two_kernel_draws(key, depth, weak, n_iters):
-    """Pixel indices the reference's two-kernel tracker draws: one batch
-    per iteration from the first half of each iteration key (tracker.py
-    loss_fn), among pseudo-depth > 0.01 pixels in weak mode."""
-    out = []
-    for k in jax.random.split(key, n_iters):
-        k_s, _ = jax.random.split(k)
-        if weak:
-            idx, _ = sample_uv_valid(k_s, depth > 0.01, N_TRACK)
-        else:
-            idx = sample_uv_uniform(k_s, W, 0, H, 0, W, N_TRACK)
-        out.append(T(idx).long())
-    return out
 
 
 @pytest.mark.parametrize("weak,dynamic,depth_sup", [
@@ -296,7 +264,8 @@ def test_two_kernel_tracker_matches_reference(weak, dynamic, depth_sup):
     bc_t, bl_t, fl_t, losses_t = make_tracking_step(
         MLPConfig(), RenderConfig(), EngineConfig(**cfg))(
         dec, T(cam0), T(color), T(depth), T(bound),
-        Draws(replay=two_kernel_draws(key, depth, weak, TRACK_ITERS)))
+        Draws(replay=pixel_draws(key, TRACK_ITERS, N_TRACK, W, H,
+                                 valid=depth > 0.01 if weak else None)))
     assert losses_t.shape == (TRACK_ITERS,)
     assert dec.layers[0].w.grad is None        # no decoder gradient
     np.testing.assert_allclose(float(fl_t), float(fl_j), rtol=2e-2)
@@ -309,23 +278,6 @@ def test_median_of_takes_the_mean_of_the_middle_pair():
     x = torch.tensor([4.0, 1.0, 3.0, 2.0])
     assert float(median_of(x)) == float(np.median(x.numpy())) == 2.5
     assert float(median_of(x[:3])) == 3.0
-
-
-def per_iter_mapper_draws(key, max_frames, iters):
-    """The reference mapper's draws off fused value-and-grad (mapper.py
-    body -> loss_fn, one pixel batch per iteration): per iteration key k,
-    pixels from split(k, F + 1)[:F], t_reg from the second half of the
-    last key (the regulation uniforms, or K3's t_reg)."""
-    ppf = N_MAP // max_frames
-    out = []
-    for k in jax.random.split(key, iters):
-        ks = jax.random.split(k, max_frames + 1)
-        out.append(torch.stack([
-            T(sample_uv_uniform(ks[f], W, 0, H, 0, W, ppf)).long()
-            for f in range(max_frames)]))
-        _, k_reg = jax.random.split(ks[-1])
-        out.append(T(jax.random.uniform(k_reg, (ppf * max_frames, SR))))
-    return out
 
 
 def field_change(tree, p_j, dec, jcfg, pts=None):
@@ -378,7 +330,8 @@ def test_mapper_off_fused_vg_matches_reference(w_beyond, n_samples,
         tree, {}, colors, depths, cams, valid, ba, BOUND, key, MAP_ITERS)
     _, ml_t = make_mapper_step(MLPConfig(), trc, EngineConfig(**cfg), F)(
         dec, T(colors), T(depths), T(cams), T(valid), T(ba), T(BOUND),
-        Draws(replay=per_iter_mapper_draws(key, F, MAP_ITERS)), MAP_ITERS)
+        Draws(replay=mapper_draws(key, F, N_MAP // F, SR, W, H, MAP_ITERS,
+                                  1)), MAP_ITERS)
     assert ml_t.shape == (MAP_ITERS,)
     np.testing.assert_allclose(ml_t.numpy(), np.asarray(ml_j), rtol=2e-2)
     cos, ratio = field_change(tree, p_j, dec, jcfg)
@@ -407,7 +360,7 @@ def test_plain_tracker_matches_reference():
     bc_t, bl_t, fl_t, losses_t = make_tracking_step(
         MLPConfig(), RenderConfig(), EngineConfig(**cfg))(
         dec, T(cam0), T(color), T(depth), T(BOUND),
-        Draws(replay=two_kernel_draws(key, depth, False, TRACK_ITERS)))
+        Draws(replay=pixel_draws(key, TRACK_ITERS, N_TRACK, W, H)))
     assert losses_t.shape == (TRACK_ITERS,)
     assert dec.layers[0].w.grad is None        # no decoder gradient
     np.testing.assert_allclose(float(fl_t), float(fl_j), rtol=2e-2)

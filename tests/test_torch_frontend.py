@@ -3,8 +3,9 @@ the scenes the reference's own tests build (tests/test_frontend.py,
 tests/test_ba.py) and on frames of the synthetic box room.
 
 Random draws: the reference draws its RANSAC hypotheses with
-jax.random.categorical per split key; `jax_hypotheses` repeats those
-splits and the port is handed the same (n_hyp, 8) indices.
+jax.random.categorical per split key; `hypotheses` (scripts/
+replay_draws.py) repeats those splits and the port is handed the same
+(n_hyp, 8) indices.
 
 Bounds: matching, the orientation gate and the splat exactly; Harris
 keypoints as the same set of integer pixels with sub-pixel positions,
@@ -14,6 +15,9 @@ equal inlier / accept masks up to 1% of the matches, rotation within
 0.1 deg, translation direction cosine > 0.9999 (E up to sign: singular
 vectors carry an arbitrary sign in either package, so E is compared up to
 sign and the poses directly); the LM pose within 1e-4."""
+
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +45,10 @@ from pointnerf_slam_torch.engine.state import Draws
 from tests.test_frontend import make_two_view
 from tests.torch_threads import share_cores
 
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "scripts"))
+from replay_draws import hypotheses  # noqa: E402
+
 share_cores()
 
 BOX_CAM = {"H": 120, "W": 160, "fx": 90.0, "fy": 90.0, "cx": 79.5,
@@ -49,15 +57,6 @@ BOX_CAM = {"H": 120, "W": 160, "fx": 90.0, "fy": 90.0, "cx": 79.5,
 
 def T(a, dtype=None):
     return torch.as_tensor(np.array(a), dtype=dtype)
-
-
-def jax_hypotheses(key, match_valid, n_hyp=256):
-    """The reference's hypothesis indices (epipolar.py:182-188)."""
-    logits = jnp.where(match_valid, 0.0, -jnp.inf)
-    logits = jnp.where(jnp.any(match_valid), logits, jnp.zeros_like(logits))
-    keys = jax.random.split(key, n_hyp)
-    return T(jax.vmap(lambda k: jax.random.categorical(
-        k, logits, shape=(8,)))(keys)).long()
 
 
 def rot_deg(Ra, Rb):
@@ -179,7 +178,7 @@ def test_ransac_matches_reference_with_replayed_hypotheses(kind):
     Tj, inl_j, _ = jep.estimate_relative_pose_ransac(kr, kc, valid, key,
                                                      thresh=th)
     Tt, inl_t, n_t = tep.estimate_relative_pose_ransac(
-        T(kr), T(kc), T(valid), jax_hypotheses(key, valid), thresh=th)
+        T(kr), T(kc), T(valid), hypotheses(key, valid), thresh=th)
     Tj, Tt = np.asarray(Tj), Tt.numpy()
     mism = float((inl_t.numpy() != np.asarray(inl_j)).mean())
     assert mism <= 0.01, mism
@@ -312,7 +311,7 @@ def test_two_view_step_matches_reference(mode):
                                    rcfg=RenderConfig())
     tfeats = [tuple(T(np.asarray(a)) for a in f) for f in feats]
     kp_t, sm_t = tstep(tfeats[0], tfeats[1], T(Tcw_ref),
-                       Draws(replay=[jax_hypotheses(key, mv)]), med, scale,
+                       Draws(replay=[hypotheses(key, mv)]), med, scale,
                        0.7, dec, T(c2w_pred), T(bound))
     kp_j, sm_j = np.asarray(kp_j), np.asarray(sm_j)
     kp_t, sm_t = kp_t.numpy(), sm_t.numpy()

@@ -6,8 +6,8 @@ conftest's 8 virtual CPU devices) and psums the gradients; the port runs
 one process per device in a gloo group (tests/torch_ranks.py: fresh
 interpreters, a file:// store in tmp_path) and all-reduces them. The
 ranks replay the reference's per-device draws: fold_in(k, d) of each
-iteration key before the splits that tests/test_torch_engine.py's
-per_iter_mapper_draws reproduces.
+iteration key before the splits that scripts/replay_draws.py's
+mapper_draws reproduces per iteration.
 
 Bounds: (a) the sharded step's loss rtol 1e-3, parameters after one Adam
 step within 2e-2 of the update's scale (ROADMAP's kernel tolerances; with
