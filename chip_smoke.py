@@ -159,8 +159,9 @@ Phases, in order; any failure raises and the script exits non-zero:
  11a. run.py: python -m pointnerf_slam_torch.run on the readers phase's
      TUM fixture (a generated config inheriting tum_imap.yaml with its
      bound, 15 mapping and 10 tracking iterations) with --input_folder,
-     --n_frames 3 and --profile: exit 0 and a Chrome trace written (its
-     kernel launches are the subprocess's, not counted)
+     --n_frames 3 and --profile: exit 0, a Chrome trace and the
+     program's spans written (its kernel launches are the subprocess's,
+     not counted)
  11b. tools: the port's eval_ate on the weak run's last checkpoint (its
      Horn RMSE equals run.trajectory_errors' of the run's poses to 1e-9
      m), and cull_mesh and eval_recon's 3D metrics of phase 5's final
@@ -1497,6 +1498,7 @@ def phase_system(torch):
     follow."""
     from pointnerf_slam_torch.engine import PointNeRFSLAM
     from pointnerf_slam_torch.io.config import load_config
+    from pointnerf_slam_torch.run import frame_line
     cfg = load_config(os.path.join(HERE, "configs/Synthetic/room_bench.yaml"))
     cfg["mapping"].update(fused_outer=True, resample_every=4,
                           color_refine=False)
@@ -1558,6 +1560,7 @@ def run_system(torch, cfg, label, n_frames=None, output=None,
     seconds, {frame: launch counts after it})."""
     from pointnerf_slam_torch.engine import PointNeRFSLAM
     from pointnerf_slam_torch.ops import fused_vg as F
+    from pointnerf_slam_torch.run import frame_line
     slam = PointNeRFSLAM(cfg, n_frames_cap=n_frames, device="cuda",
                          output=output)
     if grids0 is not None:
@@ -1673,6 +1676,7 @@ def phase_resume(torch, weak):
     from pointnerf_slam_torch.engine import PointNeRFSLAM
     from pointnerf_slam_torch.outputs import attach_outputs
     from pointnerf_slam_torch.outputs.logger import Logger, resume_slam
+    from pointnerf_slam_torch.run import frame_line
     ckpt = os.path.join(WEAK_OUT, "ckpts", f"{RESUME_FROM:05d}.npz")
     if not os.path.exists(ckpt):
         fail(f"resume: the weak run wrote no {ckpt}")
@@ -1796,29 +1800,6 @@ def phase_dynamic(torch):
         fail("dynamic: tracking did not lower the summed loss")
     check_poses(slam, "dynamic", DYN_T_MAX, tracked_only=False)
     return slam
-
-
-def frame_line(rec) -> str:
-    """One frame's record: host seconds per phase (card seconds between
-    the phase's events beside them), tracking, camera and mapping."""
-    from pointnerf_slam_torch.engine import PointNeRFSLAM
-    line = [f"frame {rec['idx']}"]
-    dev = PointNeRFSLAM.device_seconds(rec)
-    secs = [f"{k} {rec[k + '_s']:.2f} s (card {dev[k]:.2f} s)" for k in
-            ("frontend", "tracking", "mapping") if k + "_s" in rec]
-    if secs:
-        line.append(", ".join(secs))
-    if "t_err_m" in rec:
-        line.append(f"track {float(rec['track_first']):.2f} -> "
-                    f"{float(rec['track_best']):.2f}, cam err "
-                    f"{float(rec['cam_err']):.5f}, t err "
-                    f"{float(rec['t_err_m']) * 1000:.2f} mm")
-    if "map_losses" in rec:
-        ls = rec["map_losses"]
-        line.append(f"map {ls.numel()} iterations, first 10 "
-                    f"{float(ls[:10].mean()):.2f} -> last 10 "
-                    f"{float(ls[-10:].mean()):.2f}")
-    return ", ".join(line)
 
 
 def phase_track_check(torch, slam, label="track check"):
@@ -2550,7 +2531,8 @@ def phase_runpy(torch, readers):
     tracking, no colour refine or eval mesh: the profiler records every
     op, ~2 GB of trace at 150 / 50),
     --input_folder naming the fixture, --n_frames RUNPY_FRAMES, --profile:
-    the run exits 0 and the profiler wrote a trace file."""
+    the run exits 0, the profiler wrote a trace file and run.py the
+    program's spans."""
     import glob
     import yaml
     root = os.path.join(HERE, "output", "chip_smoke", "runpy")
@@ -2578,13 +2560,19 @@ def phase_runpy(torch, readers):
     tail = "\n".join(res.stdout.splitlines()[-4:])
     traces = glob.glob(os.path.join(trace, "*.pt.trace.json"))
     size = sum(os.path.getsize(f) for f in traces)
+    spans = os.path.join(trace, "program_spans.json")
+    n_spans = len(json.load(open(spans))["traceEvents"]) \
+        if os.path.exists(spans) else 0
     print(f"run.py: {' '.join(cmd[1:])}: exit {res.returncode} in "
           f"{secs:.1f} s; traces {[os.path.basename(f) for f in traces]} "
-          f"({size / 1e6:.1f} MB)\n{tail}", flush=True)
+          f"({size / 1e6:.1f} MB), {n_spans} program spans\n{tail}",
+          flush=True)
     if res.returncode:
         fail(f"run.py: exit {res.returncode}: {res.stderr[-2000:]}")
     if not traces or not size:
         fail(f"run.py: no profiler trace in {trace}")
+    if not n_spans:
+        fail(f"run.py: no program spans in {trace}")
     return secs
 
 

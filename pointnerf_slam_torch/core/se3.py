@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import tracing
+
 
 def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
     """(..., 4) quaternion (w, x, y, z) -> (..., 3, 3) rotation."""
@@ -77,5 +79,6 @@ def to_homogeneous(RT: torch.Tensor) -> torch.Tensor:
     """(..., 3, 4) -> (..., 4, 4) by appending [0 0 0 1]."""
     bottom = torch.zeros(RT.shape[:-2] + (1, 4), dtype=RT.dtype,
                          device=RT.device)
-    bottom[..., 0, 3] = 1.0
+    with tracing.wait("to_homogeneous"):
+        bottom[..., 0, 3] = 1.0
     return torch.cat([RT, bottom], dim=-2)

@@ -65,6 +65,7 @@ from ..ops.fused_vg import (_BEYOND_HI, _BEYOND_LO, fused_vg_loss,
 from ..ops.megakernel import make_fused_render
 from ..parallel.mapping import all_reduce_grads
 from ..render.renderer import regulation, render_rays
+from ..utils import tracing
 from .state import Draws, EngineConfig
 
 
@@ -198,49 +199,55 @@ def make_mapper_step(model_cfg, rcfg, ecfg: EngineConfig, max_frames: int,
         fr = torch.arange(F, device=dev)[:, None]
         losses = []
         for _ in range(num_iters // K):
-            idx = draws.take(lambda g: sample(g, depths))      # (F, ppf)
-            gt_d = depths.reshape(F, -1)[fr, idx].reshape(-1)
-            gt_c = (colors.reshape(F, -1, 3)[fr, idx].to(torch.float32)
-                    / 255.0).reshape(-1, 3)
-            i = (idx % W).to(torch.float32)
-            j = torch.div(idx, W, rounding_mode="floor").to(torch.float32)
+            with tracing.span("mapper.batch"):
+                idx = draws.take(lambda g: sample(g, depths))  # (F, ppf)
+                gt_d = depths.reshape(F, -1)[fr, idx].reshape(-1)
+                gt_c = (colors.reshape(F, -1, 3)[fr, idx].to(torch.float32)
+                        / 255.0).reshape(-1, 3)
+                i = (idx % W).to(torch.float32)
+                j = torch.div(idx, W, rounding_mode="floor").to(
+                    torch.float32)
 
-            def rays_fn(cams_o):
-                cams = torch.where(ba_mask[:, None], cams_o, fixed_cams)
-                c2w = camera_from_tensor(cams)[:, None]       # (F, 1, 3, 4)
-                ro, rd = rays_from_uv(i, j, c2w, ecfg.fx, ecfg.fy, ecfg.cx,
-                                      ecfg.cy)
-                return ro.reshape(-1, 3), rd.reshape(-1, 3)
+                def rays_fn(cams_o):
+                    cams = torch.where(ba_mask[:, None], cams_o, fixed_cams)
+                    c2w = camera_from_tensor(cams)[:, None]   # (F, 1, 3, 4)
+                    ro, rd = rays_from_uv(i, j, c2w, ecfg.fx, ecfg.fy,
+                                          ecfg.cx, ecfg.cy)
+                    return ro.reshape(-1, 3), rd.reshape(-1, 3)
 
-            with torch.no_grad():
-                ro0, rd0 = rays_fn(cams_opt)
-                if use_vg:
+                with torch.no_grad():
+                    ro0, rd0 = rays_fn(cams_opt)
+            if use_vg:
+                with torch.no_grad():
                     z2 = prep(decoder, ro0, rd0, gt_d, bound)
             for _ in range(K):
-                pert = pert_draws(draws, gt_d.shape[0])
-                t_reg = None if ecfg.occupancy else draws.take(
-                    lambda g: torch.rand(gt_d.shape[0], SR, generator=g,
-                                         device=g.device))
-                ro, rd = (ro0, rd0) if no_cam else rays_fn(cams_opt)
+                with tracing.span("mapper.batch"):
+                    pert = pert_draws(draws, gt_d.shape[0])
+                    t_reg = None if ecfg.occupancy else draws.take(
+                        lambda g: torch.rand(gt_d.shape[0], SR, generator=g,
+                                             device=g.device))
+                    ro, rd = (ro0, rd0) if no_cam else rays_fn(cams_opt)
                 if use_vg:
                     loss = fused_vg_loss(main, decoder, ro, rd, gt_d, gt_c,
                                          ray_w, t_reg, z2, bound)[0]
                 else:
                     loss = render_loss(decoder, ro, rd, gt_d, gt_c, ray_w,
                                        t_reg, bound, grids, pert)
-                opt.zero_grad(set_to_none=True)
-                if cam_opt is not None:
-                    cam_opt.zero_grad(set_to_none=True)
-                loss.backward()
-                loss = all_reduce_grads(trained, loss, group)
-                if grid_masks:
-                    for name, g in grids.items():
-                        if g.grad is not None:
-                            g.grad.mul_(grid_masks[name])
-                opt.step()
-                if cam_opt is not None:
-                    cams_opt.grad.mul_(ba_mask[:, None].to(torch.float32))
-                    cam_opt.step()
+                with tracing.span("optim.step"):
+                    opt.zero_grad(set_to_none=True)
+                    if cam_opt is not None:
+                        cam_opt.zero_grad(set_to_none=True)
+                    loss.backward()
+                    loss = all_reduce_grads(trained, loss, group)
+                    if grid_masks:
+                        for name, g in grids.items():
+                            if g.grad is not None:
+                                g.grad.mul_(grid_masks[name])
+                    opt.step()
+                    if cam_opt is not None:
+                        cams_opt.grad.mul_(ba_mask[:, None].to(
+                            torch.float32))
+                        cam_opt.step()
                 losses.append(loss.detach())
         for g in grids.values():
             g.requires_grad_(False)

@@ -11,6 +11,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils import tracing
+
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
@@ -175,7 +177,8 @@ class KeyframeBuffer:
 
     def gather_window(self, slots: np.ndarray):
         """(color, depth, pseudo_depth, est_c2w) of the window's slots."""
-        s = torch.as_tensor(np.asarray(slots), dtype=torch.int64,
-                            device=self.color.device)
+        with tracing.wait("gather_window"):
+            s = torch.as_tensor(np.asarray(slots), dtype=torch.int64,
+                                device=self.color.device)
         return (self.color[s], self.depth[s], self.pseudo_depth[s],
                 self.est_c2w[s])

@@ -77,7 +77,8 @@ keeps the same decoder, window and trajectory. Only rank 0 writes outputs
 
 from __future__ import annotations
 
-import time
+import contextlib
+import functools
 
 import numpy as np
 import torch
@@ -90,10 +91,28 @@ from ..io.datasets import get_dataset
 from ..models.decoders import get_model
 from ..parallel.mapping import data_devices, make_mesh
 from ..render.renderer import RenderConfig
+from ..utils import tracing
 from ..utils.device import resolve_device
 from .mapper import make_mapper_step
 from .state import Draws, EngineConfig, KeyframeBuffer
 from .tracker import make_tracking_step
+
+
+# the tracer's span of each phase (frame_log and timings keep the keys)
+PHASE_SPANS = {"frontend": "frontend", "tracking": "tracker",
+               "mapping": "mapper"}
+
+
+def phase_of(key: str):
+    """A method (self, idx, ...) run as phase `key` of frame idx
+    (PointNeRFSLAM._phase)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(self, idx, *args, **kwargs):
+            with self._phase(key, idx):
+                return fn(self, idx, *args, **kwargs)
+        return run
+    return wrap
 
 
 def random_select(length, k, rng: np.random.Generator):
@@ -172,8 +191,10 @@ class PointNeRFSLAM:
         self._frame_dev = None         # (idx, color f32, depth f32, color u8)
         # per-frame device records: tracking first/best loss, camera error
         # against gt, mapping losses and whether the mapper bundle-adjusted
-        # (read by run.py, no sync in step), the host seconds of the
-        # front-end, tracking and mapping, and on the card their events
+        # (read by run.py, no sync in step); the host self seconds of the
+        # front-end, tracking and mapping (`<phase>_s`), the seconds they
+        # waited on the card (`<phase>_wait_s`) and the frame's waits in
+        # all (`wait_s`), and on the card the phases' events
         self.frame_log = []
         self.frontend = None
         if self.ecfg.weak_depth and not self.ecfg.gt_camera:
@@ -185,7 +206,11 @@ class PointNeRFSLAM:
         self._pose_init_override = None
         self.pseudo_depths = {}        # frame idx -> device (H, W)
         self.scale_telemetry = []      # per tracked frame (weak mode)
+        # host self seconds of each phase, and the seconds each waited on
+        # the card ("other": waits in step outside the phases)
         self.timings = {"tracking": 0.0, "mapping": 0.0, "frontend": 0.0}
+        self.waits = {"tracking": 0.0, "mapping": 0.0, "frontend": 0.0,
+                      "other": 0.0}
 
     # -- setup ------------------------------------------------------------
     def _update_cam(self):
@@ -217,13 +242,17 @@ class PointNeRFSLAM:
 
     # -- helpers ----------------------------------------------------------
     def _cam7(self, c2w44) -> torch.Tensor:
-        return torch.as_tensor(tensor_from_camera_np(
-            np.asarray(c2w44, np.float32)).astype(np.float32),
-            device=self.device)
+        cam = tensor_from_camera_np(np.asarray(c2w44, np.float32))
+        with tracing.wait("cam7"):
+            return torch.as_tensor(cam.astype(np.float32),
+                                   device=self.device)
 
     @staticmethod
     def _c2w44(cam7) -> np.ndarray:
-        c = cam7.detach().cpu().numpy() if torch.is_tensor(cam7) else cam7
+        c = cam7
+        if torch.is_tensor(cam7):
+            with tracing.wait("c2w44"):
+                c = cam7.detach().cpu().numpy()
         return to_homogeneous_np(camera_from_tensor_np(
             np.asarray(c, np.float32))).astype(np.float32)
 
@@ -238,11 +267,14 @@ class PointNeRFSLAM:
         dmax = float(d.max())
         q = dmax / 65535.0 if dmax > 0 else 1.0
         d_u16 = np.round(d / q).astype(np.uint16)
-        u8 = torch.from_numpy(color_u8).to(self.device)
+        with tracing.wait("upload_frame"):
+            u8 = torch.from_numpy(color_u8).to(self.device)
+        with tracing.wait("upload_frame"):
+            d_dev = torch.from_numpy(d_u16.astype(np.int32)).to(self.device)
+        with tracing.wait("upload_frame"):
+            q_dev = torch.tensor(q, dtype=torch.float32, device=self.device)
         c = u8.to(torch.float32) / 255.0
-        dd = torch.from_numpy(d_u16.astype(np.int32)).to(self.device).to(
-            torch.float32) * torch.tensor(q, dtype=torch.float32,
-                                          device=self.device)
+        dd = d_dev.to(torch.float32) * q_dev
         self._frame_dev = (idx, c, dd, u8)
         return c, dd, u8
 
@@ -308,7 +340,9 @@ class PointNeRFSLAM:
         edge = 20
         inside = ((zz > 1e-5) & (u > edge) & (u < self.W - edge)
                   & (v > edge) & (v < self.H - edge))
-        return inside.to(torch.float32).mean(1).cpu().numpy()
+        share = inside.to(torch.float32).mean(1)
+        with tracing.wait("overlap_scores"):
+            return share.cpu().numpy()
 
     def _overlap_select(self, depth, c2w, n_candidates, k, n_samples=16,
                         pixels=100):
@@ -318,8 +352,11 @@ class PointNeRFSLAM:
         by the share of those points they see; k drawn (np_rng
         permutation) from the keyframes with a positive score, in
         descending score order, else k at random."""
-        depth_np = (depth.cpu().numpy() if torch.is_tensor(depth)
-                    else np.asarray(depth))
+        if torch.is_tensor(depth):
+            with tracing.wait("overlap_depth"):
+                depth_np = depth.cpu().numpy()
+        else:
+            depth_np = np.asarray(depth)
         valid = np.argwhere(depth_np > 0.01)
         if len(valid) == 0:
             return random_select(n_candidates, k, self.np_rng)
@@ -344,8 +381,9 @@ class PointNeRFSLAM:
         """{grid name: (Dx, Dy, Dz, 1) mask} of frame idx's frustum at its
         estimated pose (the coarse grid all ones)."""
         from ..models.grids import make_frustum_mask_fn
-        c2w = torch.as_tensor(self.estimate_c2w_list[idx],
-                              device=self.device)
+        with tracing.wait("frustum_pose"):
+            c2w = torch.as_tensor(self.estimate_c2w_list[idx],
+                                  device=self.device)
         masks = {}
         for name, g in self.c_grid.items():
             if name == "grid_coarse":
@@ -368,32 +406,33 @@ class PointNeRFSLAM:
         valid = np.zeros((max_frames,), bool)
         valid[: len(slots)] = True
         valid[-1] = True
+        with tracing.wait("window_valid"):
+            valid_dev = torch.as_tensor(valid, device=self.device)
         return (torch.cat([kf_color, cur_color_u8[None]], 0),
                 torch.cat([kf_depth, cur_depth[None]], 0),
-                torch.cat([kf_cams, cur_cam[None]], 0),
-                torch.as_tensor(valid, device=self.device))
+                torch.cat([kf_cams, cur_cam[None]], 0), valid_dev)
 
-    def _clock(self):
-        """The start of a phase: host time and, on the card, an event
-        recorded on the current stream (never waited for in step)."""
-        ev = None
+    @contextlib.contextmanager
+    def _phase(self, key: str, idx: int):
+        """One phase of frame idx (a key of `timings`): the tracer's phase
+        span, whose host self seconds and waits go to timings, waits and
+        frame idx's record, and on the card a pair of events recorded on
+        the current stream around it (never waited for in step);
+        device_seconds reads them."""
+        ev0 = None
         if self.device.type == "cuda":
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-        return time.time(), ev
-
-    def _tick(self, key: str, t0, idx: int) -> None:
-        """Add the host seconds since t0 (from _clock) to timings[key] and
-        to frame idx's record, without waiting for the device, as the JAX
-        reference times its phases. On the card the record also keeps the
-        phase's start and end events; device_seconds reads them."""
-        host0, ev0 = t0
-        dt = time.time() - host0
-        self.timings[key] += dt
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+        with tracing.phase(PHASE_SPANS[key]) as sp:
+            yield
+        host, wait = sp.self_ns / 1e9, sp.wait_ns / 1e9
+        self.timings[key] += host
+        self.waits[key] += wait
         if not self.frame_log or self.frame_log[-1]["idx"] != idx:
             self.frame_log.append({"idx": idx})
         rec = self.frame_log[-1]
-        rec[f"{key}_s"] = rec.get(f"{key}_s", 0.0) + dt
+        rec[f"{key}_s"] = rec.get(f"{key}_s", 0.0) + host
+        rec[f"{key}_wait_s"] = rec.get(f"{key}_wait_s", 0.0) + wait
         if ev0 is not None:
             ev1 = torch.cuda.Event(enable_timing=True)
             ev1.record()
@@ -438,9 +477,9 @@ class PointNeRFSLAM:
         return Draws(torch.Generator(device=self.device).manual_seed(
             int(seed)))
 
+    @phase_of("mapping")
     def _map_frame(self, idx, color, sensor_depth, num_iters, outer_iters,
                    refine=False, lr_factor: float = 1.0):
-        t0 = self._clock()
         max_frames = (self.ecfg.mapping_window_size * 2 + 1 if refine
                       else self.max_window)
         if (self.ecfg.keyframe_selection_method == "overlap"
@@ -462,22 +501,24 @@ class PointNeRFSLAM:
 
         if (self.ecfg.fused_outer and not self.nice and not do_ba
                 and outer_iters > 1):
-            wins = [self._window(select(), max_frames, cur_u8, cur_depth,
-                                 cur_cam)
-                    for _ in range(outer_iters)]
-            stacked = [torch.stack([w[k] for w in wins]) for k in range(4)]
+            with tracing.span("mapper.select"):
+                wins = [self._window(select(), max_frames, cur_u8,
+                                     cur_depth, cur_cam)
+                        for _ in range(outer_iters)]
+                stacked = [torch.stack([w[k] for w in wins])
+                           for k in range(4)]
             ba_o = torch.zeros_like(stacked[3])
             step_fn = self._get_mapper_step(max_frames, True)
             _, losses = step_fn(self.decoder, *stacked, ba_o, self.bound,
                                 draws, num_iters)
             self._log(idx, "map_losses", losses)
             self.mapping_first_frame_done = True
-            self._tick("mapping", t0, idx)
             return
         for _ in range(outer_iters):
-            slots = select()
-            colors, depths, cams, valid = self._window(
-                slots, max_frames, cur_u8, cur_depth, cur_cam)
+            with tracing.span("mapper.select"):
+                slots = select()
+                colors, depths, cams, valid = self._window(
+                    slots, max_frames, cur_u8, cur_depth, cur_cam)
             ba_all = torch.zeros_like(valid)
             if do_ba:
                 ba_all[: len(slots)] = True
@@ -505,13 +546,12 @@ class PointNeRFSLAM:
                     self._pending_pose = None
                 self.estimate_c2w_list[idx] = self._c2w44(cur_cam)
         self.mapping_first_frame_done = True
-        self._tick("mapping", t0, idx)
 
     # -- tracking ---------------------------------------------------------
+    @phase_of("tracking")
     def _track_frame(self, idx, color, sensor_depth, gt_c2w):
         """Refine the pose of frame idx; the result stays on the device
         until the end of the step."""
-        t0 = self._clock()
         if self._pose_init_override is not None:
             init = self._pose_init_override
             self._pose_init_override = None
@@ -541,7 +581,6 @@ class PointNeRFSLAM:
         if self.tracking_visualizer is not None:
             self.tracking_visualizer.vis(self, idx, sensor_depth, color,
                                          self.estimate_c2w_list[idx])
-        self._tick("tracking", t0, idx)
 
     def _commit_pending_pose(self):
         if self._pending_pose is not None:
@@ -572,15 +611,28 @@ class PointNeRFSLAM:
                 or (e.weak_depth and idx % e.every_frame == 0))
         if not want or idx in self.keyframes.frame_idx:
             return
-        _, depth_dev, color_u8 = self._upload_frame(idx, color, sensor_depth)
-        self.keyframes.insert(idx, color_u8, depth_dev,
-                              self._cam7_current(idx),
-                              pseudo_depth=self.pseudo_depths.get(idx),
-                              gt_c2w7=self._cam7(self.gt_c2w_list[idx]))
+        with tracing.span("keyframe.insert"):
+            _, depth_dev, color_u8 = self._upload_frame(idx, color,
+                                                        sensor_depth)
+            self.keyframes.insert(idx, color_u8, depth_dev,
+                                  self._cam7_current(idx),
+                                  pseudo_depth=self.pseudo_depths.get(idx),
+                                  gt_c2w7=self._cam7(self.gt_c2w_list[idx]))
 
     # -- main loop ----------------------------------------------------------
     def step(self, idx, color, sensor_depth, gt_c2w):
-        """Process one frame (tracking + mapping as scheduled)."""
+        """Process one frame (tracking + mapping as scheduled) under the
+        tracer's `step` span; the frame's waits on the card go to its
+        record (`wait_s`)."""
+        phases = sum(self.waits.values())
+        with tracing.frame(idx) as fr:
+            self._step(idx, color, sensor_depth, gt_c2w)
+        if fr.wait_ns:
+            wait = fr.wait_ns / 1e9
+            self.waits["other"] += wait - (sum(self.waits.values()) - phases)
+            self._log(idx, "wait_s", wait)
+
+    def _step(self, idx, color, sensor_depth, gt_c2w):
         e = self.ecfg
         self.gt_c2w_list[idx] = gt_c2w
         if idx == 0:
@@ -632,9 +684,9 @@ class PointNeRFSLAM:
             if self.frontend is not None and not final:
                 nxt = (idx // e.track_every_frame + 1) * e.track_every_frame
                 if nxt < self.n_img:
-                    t0 = self._clock()
-                    self.frontend.prefetch_extract(self.frame_reader, nxt)
-                    self._tick("frontend", t0, idx)
+                    with self._phase("frontend", idx):
+                        self.frontend.prefetch_extract(self.frame_reader,
+                                                       nxt)
         self._commit_pending_pose()
 
     # -- weak mode ----------------------------------------------------------
@@ -649,10 +701,10 @@ class PointNeRFSLAM:
             self.estimate_c2w_list[k] = interp_c2w_np(a, b,
                                                       (k - lo) / (hi - lo))
 
+    @phase_of("frontend")
     def _bootstrap_weak(self, idx):
         """The front-end's two-view bootstrap of frame idx against frame 0;
         a RuntimeError (too little parallax) postpones it."""
-        t0 = self._clock()
         try:
             est_c2w, pseudo_ref, pseudo_cur = self.frontend.bootstrap(
                 self.frame_reader, 0, idx, self.estimate_c2w_list[0])
@@ -661,7 +713,6 @@ class PointNeRFSLAM:
                 print(f"frontend bootstrap failed at {idx} ({err}); "
                       f"retrying at the next tracked frame", flush=True)
             self.estimate_c2w_list[idx] = self.estimate_c2w_list[idx - 1]
-            self._tick("frontend", t0, idx)
             return
         self._bootstrapped = True
         self.bootstrap_idx = idx
@@ -672,12 +723,11 @@ class PointNeRFSLAM:
         if 0 in self.keyframes.frame_idx:
             slot = self.keyframes.frame_idx.index(0)
             self.keyframes.pseudo_depth[slot] = pseudo_ref
-        self._tick("frontend", t0, idx)
 
+    @phase_of("frontend")
     def _frontend_frame(self, idx):
         """The front-end's continuous solve for tracked frame idx: its pose
         initialises the NeRF tracker, its pseudo-depth supervises it."""
-        t0 = self._clock()
         step = self.ecfg.track_every_frame
         est = self.estimate_c2w_list
         if idx - 2 * step >= 0 and self.ecfg.const_speed_assumption:
@@ -711,7 +761,6 @@ class PointNeRFSLAM:
             "c_prior": est[idx][:3, 3].tolist(),
             "c_solve": None if est_c2w is None
             else np.asarray(est_c2w)[:3, 3].tolist()})
-        self._tick("frontend", t0, idx)
 
     def run(self, start_idx: int = 0, on_frame=None):
         """Process frames start_idx .. n_img-1; on_frame(self, idx) after

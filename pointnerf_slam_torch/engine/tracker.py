@@ -48,6 +48,7 @@ from ..ops.fused_vg import (fused_vg_loss, make_fused_vg_split,
                             supports_fused_vg, supports_megakernel)
 from ..ops.megakernel import make_fused_render
 from ..render.renderer import render_rays
+from ..utils import tracing
 from .state import Draws, EngineConfig
 
 
@@ -143,24 +144,29 @@ def make_tracking_step(model_cfg, rcfg, ecfg: EngineConfig):
             [{"params": [quad], "lr": lr * 0.2 if ecfg.seperate_LR else lr},
              {"params": [trans], "lr": lr}], eps=1e-8)
         best_cam = cam0.clone()
-        best_loss = torch.tensor(1e10, device=cam0.device)
+        with tracing.wait("best_loss"):
+            best_loss = torch.tensor(1e10, device=cam0.device)
         losses = []
         for _ in range(ecfg.num_cam_iters // K):
-            idx = draws.take(sample)
-            i, j, gt_d, gt_c = gather_pixels(idx, W, depth_sup, color)
+            with tracing.span("tracker.batch"):
+                idx = draws.take(sample)
+                i, j, gt_d, gt_c = gather_pixels(idx, W, depth_sup, color)
 
-            def rays_of(cam):
-                return rays_from_uv(i, j, camera_from_tensor(cam), ecfg.fx,
-                                    ecfg.fy, ecfg.cx, ecfg.cy)
+                def rays_of(cam):
+                    return rays_from_uv(i, j, camera_from_tensor(cam),
+                                        ecfg.fx, ecfg.fy, ecfg.cx, ecfg.cy)
 
+                if not per_iter:
+                    ones = torch.ones_like(gt_d)
+                    with torch.no_grad():
+                        ro0, rd0 = rays_of(torch.cat([quad, trans]))
             if not per_iter:
-                ones = torch.ones_like(gt_d)
                 with torch.no_grad():
-                    ro0, rd0 = rays_of(torch.cat([quad, trans]))
                     z2 = prep(decoder, ro0, rd0, gt_d, bound)
             for _ in range(K):
-                cam = torch.cat([quad, trans])
-                ro, rd = rays_of(cam)
+                with tracing.span("tracker.batch"):
+                    cam = torch.cat([quad, trans])
+                    ro, rd = rays_of(cam)
                 if per_iter:
                     pert = None
                     if rcfg.perturb > 0 and not use_mega:
@@ -175,13 +181,14 @@ def make_tracking_step(model_cfg, rcfg, ecfg: EngineConfig):
                 else:
                     loss = fused_vg_loss(main, decoder, ro, rd, gt_d, gt_c,
                                          ones, None, z2, bound)[0]
-                lv = loss.detach()
-                improved = lv < best_loss
-                best_cam = torch.where(improved, cam.detach(), best_cam)
-                best_loss = torch.where(improved, lv, best_loss)
-                opt.zero_grad(set_to_none=True)
-                loss.backward()
-                opt.step()
+                with tracing.span("optim.step"):
+                    lv = loss.detach()
+                    improved = lv < best_loss
+                    best_cam = torch.where(improved, cam.detach(), best_cam)
+                    best_loss = torch.where(improved, lv, best_loss)
+                    opt.zero_grad(set_to_none=True)
+                    loss.backward()
+                    opt.step()
                 losses.append(lv)
         losses = torch.stack(losses)
         return best_cam, best_loss, losses[0], losses

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..core.se3 import camera_from_tensor
+from ..utils import tracing
 
 CHI2_MONO = 5.991
 
@@ -59,10 +60,15 @@ def pose_optimization(cam7_init, pts, kpn, valid, sigma2: float = 1.0,
             return (_residuals(c, pts, kpn)[0] * w[:, None]).reshape(-1)
 
         for _ in range(iters_per_round):
-            J = torch.func.jacfwd(flat_res)(cam)              # (2N, 7)
-            res = flat_res(cam)
-            H = J.T @ J + 1e-6 * eye7
-            cam = _renorm(cam - torch.linalg.solve(H, J.T @ res))
+            with tracing.span("frontend.pose_opt"):
+                J = torch.func.jacfwd(flat_res)(cam)          # (2N, 7)
+                res = flat_res(cam)
+                H = J.T @ J + 1e-6 * eye7
+                g = J.T @ res
+            with tracing.wait("pose_optimization"):
+                step = torch.linalg.solve(H, g)
+            with tracing.span("frontend.pose_opt"):
+                cam = _renorm(cam - step)
         r, z = _residuals(cam, pts, kpn)
         r2 = (r * r).sum(-1) / sigma2
         inliers = valid & (r2 < chi2_th) & (z > 0)

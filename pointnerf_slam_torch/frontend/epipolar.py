@@ -27,6 +27,8 @@ import math
 
 import torch
 
+from ..utils import tracing
+
 N_HYP = 256
 TOPK = 8
 
@@ -48,8 +50,10 @@ def _eye(n, ref):
 
 def _to_essential(E: torch.Tensor) -> torch.Tensor:
     """Project (..., 3, 3) onto the essential manifold (s = 1, 1, 0)."""
-    u, _, vt = torch.linalg.svd(E)
-    s = torch.tensor([1.0, 1.0, 0.0], dtype=E.dtype, device=E.device)
+    with tracing.wait("essential", syncs=2):
+        u, _, vt = torch.linalg.svd(E)
+    with tracing.wait("essential"):
+        s = torch.tensor([1.0, 1.0, 0.0], dtype=E.dtype, device=E.device)
     return (u * s) @ vt
 
 
@@ -61,7 +65,8 @@ def _eight_point(x_cur: torch.Tensor, x_ref: torch.Tensor) -> torch.Tensor:
     one = torch.ones_like(xc)
     A = torch.stack([xr * xc, xr * yc, xr, yr * xc, yr * yc, yr, xc, yc,
                      one], dim=-1)
-    _, _, vt = torch.linalg.svd(A, full_matrices=True)
+    with tracing.wait("eight_point", syncs=2):
+        _, _, vt = torch.linalg.svd(A, full_matrices=True)
     return _to_essential(vt[..., -1, :].reshape(A.shape[:-2] + (3, 3)))
 
 
@@ -111,7 +116,8 @@ def _exp_so3(w: torch.Tensor) -> torch.Tensor:
 
 def _tangent_basis(t: torch.Tensor) -> torch.Tensor:
     """(3, 2) orthonormal basis of the plane normal to unit t."""
-    e = _eye(3, t)[torch.argmin(t.abs())]
+    with tracing.wait("tangent_basis"):
+        e = _eye(3, t)[torch.argmin(t.abs())]
     b1 = e - t * (e @ t)
     b1 = b1 / torch.clamp(torch.linalg.norm(b1), min=1e-12)
     b2 = torch.linalg.cross(t, b1)
@@ -134,16 +140,19 @@ def _gn_polish(R, t, x_cur, x_ref, w, sigma: float, iters: int = 8):
             tn = _unit(t + B @ p[3:])
             return _signed_sampson(_skew(tn) @ Rn, x_cur, x_ref)
 
-        p0 = torch.zeros(5, dtype=R.dtype, device=R.device)
-        r = res(p0)
-        J = torch.func.jacfwd(res)(p0)                      # (M, 5)
-        ww = w / torch.clamp(r.abs() / sigma, min=1.0)
-        ww = ww * (r.abs() < 3.0 * sigma)
-        A = J.T @ (J * ww[:, None]) + 1e-10 * _eye(5, R)
-        g = J.T @ (r * ww)
-        p = -torch.linalg.solve(A, g)
-        R = R @ _exp_so3(p[:3])
-        t = _unit(t + B @ p[3:])
+        with tracing.span("frontend.gn_polish"):
+            p0 = torch.zeros(5, dtype=R.dtype, device=R.device)
+            r = res(p0)
+            J = torch.func.jacfwd(res)(p0)                  # (M, 5)
+            ww = w / torch.clamp(r.abs() / sigma, min=1.0)
+            ww = ww * (r.abs() < 3.0 * sigma)
+            A = J.T @ (J * ww[:, None]) + 1e-10 * _eye(5, R)
+            g = J.T @ (r * ww)
+        with tracing.wait("gn_polish"):
+            p = -torch.linalg.solve(A, g)
+        with tracing.span("frontend.gn_polish"):
+            R = R @ _exp_so3(p[:3])
+            t = _unit(t + B @ p[3:])
     return R, t
 
 
@@ -151,20 +160,22 @@ def _triangulate_two_view(R, t, x_cur, x_ref):
     """Depths of each match in both frames under P_ref = [I|0], P_cur =
     [R^T | -R^T t] (DLT null vector). Returns z_ref, z_cur (M,)."""
     from .triangulate import null_vectors
-    Rp = R.T
-    tp = -R.T @ t
-    P0 = torch.cat([_eye(3, R), torch.zeros_like(t)[:, None]], 1)
-    P1 = torch.cat([Rp, tp[:, None]], 1)
-    A = torch.stack([
-        x_ref[:, 0:1] * P0[2] - P0[0],
-        x_ref[:, 1:2] * P0[2] - P0[1],
-        x_cur[:, 0:1] * P1[2] - P1[0],
-        x_cur[:, 1:2] * P1[2] - P1[1]], dim=1)
+    with tracing.span("frontend.dlt"):
+        Rp = R.T
+        tp = -R.T @ t
+        P0 = torch.cat([_eye(3, R), torch.zeros_like(t)[:, None]], 1)
+        P1 = torch.cat([Rp, tp[:, None]], 1)
+        A = torch.stack([
+            x_ref[:, 0:1] * P0[2] - P0[0],
+            x_ref[:, 1:2] * P0[2] - P0[1],
+            x_cur[:, 0:1] * P1[2] - P1[0],
+            x_cur[:, 1:2] * P1[2] - P1[1]], dim=1)
     X, _ = null_vectors(A)
-    w = X[:, 3]
-    X = X / torch.where(w.abs() < 1e-12, torch.full_like(w, 1e-12),
-                        w)[:, None]
-    return X[:, 2], (X[:, :3] @ Rp.T + tp)[:, 2]
+    with tracing.span("frontend.dlt"):
+        w = X[:, 3]
+        X = X / torch.where(w.abs() < 1e-12, torch.full_like(w, 1e-12),
+                            w)[:, None]
+        return X[:, 2], (X[:, :3] @ Rp.T + tp)[:, 2]
 
 
 def estimate_relative_pose_ransac(kpn_ref: torch.Tensor,
@@ -186,22 +197,26 @@ def estimate_relative_pose_ransac(kpn_ref: torch.Tensor,
                        torch.zeros_like(d2)).sum(1)
 
     # MSAC-best-first starts with a >= 25 deg translation-direction gate
-    t_all = torch.linalg.svd(Es)[0][:, :, 2]                 # (n_hyp, 3)
+    with tracing.wait("ransac", syncs=2):
+        t_all = torch.linalg.svd(Es)[0][:, :, 2]             # (n_hyp, 3)
     score = msac.clone()
     cos25 = math.cos(math.radians(25.0))
     top = []
     for _ in range(TOPK):
         b = torch.argmax(score)
         top.append(b)
-        close = (t_all @ t_all[b]).abs() > cos25
+        with tracing.wait("ransac"):
+            close = (t_all @ t_all[b]).abs() > cos25
         score = torch.where(close, torch.full_like(score, -float("inf")),
                             score)
     top = torch.stack(top)
 
     A_all = (_homog(kpn_ref)[:, :, None] * _homog(kpn_cur)[:, None, :]
              ).reshape(M, 9)
-    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
-                     dtype=kpn_ref.dtype, device=kpn_ref.device)
+    with tracing.wait("ransac"):
+        W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0],
+                          [0.0, 0.0, 1.0]], dtype=kpn_ref.dtype,
+                         device=kpn_ref.device)
     wv = match_valid.to(kpn_ref.dtype)
 
     def refit(mask):
@@ -210,14 +225,16 @@ def estimate_relative_pose_ransac(kpn_ref: torch.Tensor,
         # product summed in another order than the reference's picks a
         # visibly different null vector (measured: 11 of 200 inliers)
         Aw = A_all.double() * mask.double()[:, None]
-        _, vecs = torch.linalg.eigh(Aw.T @ Aw)
+        with tracing.wait("ransac_refit"):
+            _, vecs = torch.linalg.eigh(Aw.T @ Aw)
         E = _to_essential(vecs[:, 0].to(A_all.dtype).reshape(3, 3))
         return E, (_sampson(E, kpn_cur, kpn_ref) < th2) & match_valid
 
     def polish_one(mask):
         for _ in range(2):
             E, mask = refit(mask)
-        u, _, vt = torch.linalg.svd(E)
+        with tracing.wait("ransac_polish", syncs=2):
+            u, _, vt = torch.linalg.svd(E)
         u = u * torch.sign(torch.linalg.det(u))
         vt = vt * torch.sign(torch.linalg.det(vt))
         R1, R2, t = u @ W @ vt, u @ W.T @ vt, u[:, 2]
@@ -229,8 +246,12 @@ def estimate_relative_pose_ransac(kpn_ref: torch.Tensor,
             votes.append(((z_ref > 0) & (z_cur > 0) & mask).sum())
         votes = torch.stack(votes)
         b = torch.argmax(votes)
-        R, t = Rs[b], ts[b]
-        dead = votes[b] == 0
+        with tracing.wait("ransac_polish"):
+            R = Rs[b]
+        with tracing.wait("ransac_polish"):
+            t = ts[b]
+        with tracing.wait("ransac_polish"):
+            dead = votes[b] == 0
         R, t = _gn_polish(R, t, kpn_cur, kpn_ref, wv, thresh)
         r = _signed_sampson(_skew(t) @ R, kpn_cur, kpn_ref).abs()
         rho = torch.where(r < thresh, 0.5 * r ** 2 / thresh,
@@ -251,7 +272,10 @@ def estimate_relative_pose_ransac(kpn_ref: torch.Tensor,
     sel = torch.where(finite, npostk.to(costk.dtype) - costk,
                       torch.full_like(costk, -float("inf")))
     b = torch.argmax(sel)
-    R, t = Rk[b], tk[b]
+    with tracing.wait("ransac"):
+        R = Rk[b]
+    with tracing.wait("ransac"):
+        t = tk[b]
     inlier_mask = (_sampson(_skew(t) @ R, kpn_cur, kpn_ref) < th2) \
         & match_valid
     Trc = _eye(4, R).clone()

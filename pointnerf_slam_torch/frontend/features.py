@@ -30,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as Fn
 
+from ..utils import tracing
 from ..utils.device import resolve_device
 
 
@@ -113,7 +114,8 @@ def _sep_conv(x: torch.Tensor, k) -> torch.Tensor:
 
 
 def _kernel(values, dev) -> torch.Tensor:
-    return torch.tensor(values, dtype=torch.float32, device=dev)
+    with tracing.wait("harris_kernel"):
+        return torch.tensor(values, dtype=torch.float32, device=dev)
 
 
 def harris_score(gray: torch.Tensor, k: float = 0.04) -> torch.Tensor:

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ..engine.state import Draws
+from ..utils import tracing
 from ..utils.device import resolve_device
 from .features import HarrisExtractor, SuperPointExtractor
 from .mapstore import _KF_REGISTRY, KeyFrame, Map, MapPoint
@@ -86,7 +87,10 @@ def cv_w2c_to_nerf_c2w(Tcw_cv: np.ndarray) -> np.ndarray:
 
 
 def _np(x):
-    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+    if not torch.is_tensor(x):
+        return np.asarray(x)
+    with tracing.wait("frontend_np"):
+        return x.detach().cpu().numpy()
 
 
 class SparseFrontend:
@@ -169,13 +173,16 @@ class SparseFrontend:
 
     # -- helpers -----------------------------------------------------------
     def _dev(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), dtype=torch.float32,
-                               device=self.device)
+        with tracing.wait("frontend_dev"):
+            return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                   device=self.device)
 
     def _extract(self, color_np):
-        gray = torch.as_tensor(np.asarray(color_np), dtype=torch.float32,
-                               device=self.device).mean(-1)
-        return self.extractor.extract(gray)
+        with tracing.span("frontend.extract"):
+            with tracing.wait("extract_upload"):
+                rgb = torch.as_tensor(np.asarray(color_np),
+                                      dtype=torch.float32, device=self.device)
+            return self.extractor.extract(rgb.mean(-1))
 
     def _kpn(self, kps: torch.Tensor) -> torch.Tensor:
         return torch.stack([(kps[:, 0] - self.cx) / self.fx,
@@ -215,12 +222,14 @@ class SparseFrontend:
             kw = dict(decoder=field_ctx["decoder"],
                       c2w_pred=field_ctx["c2w_pred"],
                       bound=field_ctx["bound"])
-        r = self._runner_for(mode, field_ctx).run(
-            mode, feats_ref, feats_cur, Tcw_ref_cv, self.draws,
-            self.median_gt_depth,
-            scale_prior if scale_prior is not None else self.depth_scale,
-            nn_thresh=(self.dyn.max_descriptor_distance
-                       if self.dyn is not None else None), **kw)
+        with tracing.span("frontend.two_view"):
+            r = self._runner_for(mode, field_ctx).run(
+                mode, feats_ref, feats_cur, Tcw_ref_cv, self.draws,
+                self.median_gt_depth,
+                scale_prior if scale_prior is not None
+                else self.depth_scale,
+                nn_thresh=(self.dyn.max_descriptor_distance
+                           if self.dyn is not None else None), **kw)
         if self.dyn is not None:
             self.dyn.update_descriptor_stats(r["score_med"],
                                              r["score_mad"])
@@ -239,10 +248,11 @@ class SparseFrontend:
         return r
 
     def _splat(self, uv, z, accept):
-        return splat_pseudo_depth(
-            self._dev(uv), self._dev(z),
-            torch.as_tensor(np.asarray(accept), device=self.device),
-            self.H, self.W, self.depth_patch)
+        with tracing.span("frontend.splat"):
+            with tracing.wait("frontend_dev"):
+                keep = torch.as_tensor(np.asarray(accept), device=self.device)
+            return splat_pseudo_depth(self._dev(uv), self._dev(z), keep,
+                                      self.H, self.W, self.depth_patch)
 
     def _map_scale_correction(self, ref_idx, Tcw_ref_cv, r):
         """Median ratio of confirmed map points' depth in the reference
@@ -433,9 +443,10 @@ class SparseFrontend:
         if np.isfinite(bs_par) and bs_par > 0:
             self._par_rate = bs_par / max(cur_idx - ref_idx, 1)
         if self.map is not None:
-            self._map_register_from_feats(
-                cur_idx, feats_cur, ref_idx, feats_ref,
-                np.asarray(Tcw_cur_cv), Tcw_ref_cv)
+            with tracing.span("frontend.map_update"):
+                self._map_register_from_feats(
+                    cur_idx, feats_cur, ref_idx, feats_ref,
+                    np.asarray(Tcw_cur_cv), Tcw_ref_cv)
         return cv_w2c_to_nerf_c2w(Tcw_cur_cv), pseudo_ref, pseudo_cur
 
     def _map_register_from_feats(self, idx_c, feats_c, idx_r, feats_r,
@@ -630,20 +641,21 @@ class SparseFrontend:
         pseudo = None
         if emit:
             if self.map is not None:
-                kf_ref = self._kf_for(ref_idx, self._kpn(feats_ref[0]),
-                                      feats_ref[1], feats_ref[2],
-                                      Tcw_ref_cv, angles=feats_ref[3])
-                kf_cur = self._kf_for(idx, self._kpn(feats_cur[0]),
-                                      feats_cur[1], feats_cur[2],
-                                      Tcw_cur_cv, angles=feats_cur[3])
-                Twc = _inv_rigid_np(Tcw_cur_cv)
-                xn = (uv_cur - [self.cx, self.cy]) / [self.fx, self.fy]
-                cam_pts = np.concatenate(
-                    [xn * z_cur[:, None], z_cur[:, None]], 1)
-                pts3d_w = cam_pts @ Twc[:3, :3].T + Twc[:3, 3]
-                uv_m, z_m, acc_m = self._map_update(
-                    idx, kf_cur, kf_ref, r["idx2"], pts3d_w, accept,
-                    np.asarray(Tcw_cur_cv))
+                with tracing.span("frontend.map_update"):
+                    kf_ref = self._kf_for(ref_idx, self._kpn(feats_ref[0]),
+                                          feats_ref[1], feats_ref[2],
+                                          Tcw_ref_cv, angles=feats_ref[3])
+                    kf_cur = self._kf_for(idx, self._kpn(feats_cur[0]),
+                                          feats_cur[1], feats_cur[2],
+                                          Tcw_cur_cv, angles=feats_cur[3])
+                    Twc = _inv_rigid_np(Tcw_cur_cv)
+                    xn = (uv_cur - [self.cx, self.cy]) / [self.fx, self.fy]
+                    cam_pts = np.concatenate(
+                        [xn * z_cur[:, None], z_cur[:, None]], 1)
+                    pts3d_w = cam_pts @ Twc[:3, :3].T + Twc[:3, 3]
+                    uv_m, z_m, acc_m = self._map_update(
+                        idx, kf_cur, kf_ref, r["idx2"], pts3d_w, accept,
+                        np.asarray(Tcw_cur_cv))
                 uv_all = np.concatenate([uv_cur, uv_m], axis=0)
                 z_all = np.concatenate([z_cur, z_m], axis=0)
                 acc_all = np.concatenate([accept, acc_m], axis=0)
@@ -693,8 +705,9 @@ class SparseFrontend:
                 ref_idx = kf.frame_idx
                 kpn_ref_full = self._dev(kf.kps)
                 desc_r = self._dev(kf.desc)
-                val_r = torch.as_tensor(np.asarray(kf.valid),
-                                        device=self.device)
+                with tracing.wait("frontend_dev"):
+                    val_r = torch.as_tensor(np.asarray(kf.valid),
+                                            device=self.device)
                 ang_r = self._dev(kf.angles) \
                     if kf.angles is not None else None
         Tcw_ref_cv = nerf_c2w_to_cv_w2c(estimate_c2w_list[ref_idx])
@@ -754,13 +767,14 @@ class SparseFrontend:
         if self.map is not None:
             # the map takes the pair's observations before the sparsity
             # exit: its confirmed projections can carry the frame alone
-            kf_ref = self._kf_for(ref_idx, kpn_ref_full, desc_r, val_r,
-                                  Tcw_ref_cv, angles=ang_r)
-            kf_cur = self._kf_for(idx, kpn_cur, desc_c, val_c, Tcw_cur_cv,
-                                  angles=ang_c)
-            uv_m, z_m, acc_m = self._map_update(
-                idx, kf_cur, kf_ref, _np(idx2), _np(pts3d), accept,
-                Tcw_cur_cv)
+            with tracing.span("frontend.map_update"):
+                kf_ref = self._kf_for(ref_idx, kpn_ref_full, desc_r, val_r,
+                                      Tcw_ref_cv, angles=ang_r)
+                kf_cur = self._kf_for(idx, kpn_cur, desc_c, val_c,
+                                      Tcw_cur_cv, angles=ang_c)
+                uv_m, z_m, acc_m = self._map_update(
+                    idx, kf_cur, kf_ref, _np(idx2), _np(pts3d), accept,
+                    Tcw_cur_cv)
             uv_cur = np.concatenate([uv_cur, uv_m], axis=0)
             z_cur = np.concatenate([z_cur, z_m], axis=0)
             accept = np.concatenate([accept, acc_m], axis=0)

@@ -27,6 +27,7 @@ from ..core.rays import rays_from_uv
 from ..core.se3 import camera_from_tensor, tensor_from_camera, \
     to_homogeneous
 from ..render.renderer import render_rays
+from ..utils import tracing
 from .ba import pose_optimization
 from .epipolar import draw_hypotheses, estimate_relative_pose_ransac
 from .matching import match_two_way
@@ -39,7 +40,8 @@ def masked_median(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     xs = torch.sort(torch.where(m, x, torch.full_like(x, 3e38)))[0]
     n = m.sum()
     idx = torch.div(n - 1, 2, rounding_mode="floor").clamp(0, x.shape[0] - 1)
-    return torch.where(n > 0, xs[idx], torch.zeros_like(xs[0]))
+    with tracing.wait("masked_median"):
+        return torch.where(n > 0, xs[idx], torch.zeros_like(xs[0]))
 
 
 def _center(T: torch.Tensor) -> torch.Tensor:
@@ -69,8 +71,10 @@ def make_two_view_step(H, W, fx, fy, cx, cy, ransac_thresh, mode: str,
         kps_c, desc_c, val_c, ang_c = feats_cur
         dev = kps_c.device
         K = kps_c.shape[0]
-        f = torch.tensor([fx, fy], dtype=torch.float32, device=dev)
-        c = torch.tensor([cx, cy], dtype=torch.float32, device=dev)
+        with tracing.wait("two_view_consts"):
+            f = torch.tensor([fx, fy], dtype=torch.float32, device=dev)
+        with tracing.wait("two_view_consts"):
+            c = torch.tensor([cx, cy], dtype=torch.float32, device=dev)
 
         idx2, mvalid, scores = match_two_way(desc_c, val_c, desc_r, val_r,
                                              nn_thresh)
@@ -116,9 +120,12 @@ def make_two_view_step(H, W, fx, fy, cx, cy, ransac_thresh, mode: str,
                                   c2w_pred, fx, fy, cx, cy)
             with torch.no_grad():
                 zf = render_rays(decoder, rcfg, ro, rd, bound, None)[0]
-        mg = torch.as_tensor(median_gt_depth, dtype=torch.float32,
-                             device=dev)
-        ds = torch.as_tensor(depth_scale, dtype=torch.float32, device=dev)
+        with tracing.wait("two_view_consts"):
+            mg = torch.as_tensor(median_gt_depth, dtype=torch.float32,
+                                 device=dev)
+        with tracing.wait("two_view_consts"):
+            ds = torch.as_tensor(depth_scale, dtype=torch.float32,
+                                 device=dev)
         s_raw = None
         if mode == "bootstrap":
             s = mg / torch.clamp(masked_median(z_cur, accept), min=1e-9)
@@ -149,7 +156,8 @@ def make_two_view_step(H, W, fx, fy, cx, cy, ransac_thresh, mode: str,
             T_lm = to_homogeneous(camera_from_tensor(cam))
             Tcw_cur = torch.where(n_in >= 8, T_lm, Tcw_cur)
 
-        minus1 = torch.tensor(-1, device=dev)
+        with tracing.wait("two_view_consts"):
+            minus1 = torch.tensor(-1, device=dev)
         n_scale_ok = n_field_ok = minus1
         field_ok = torch.zeros(K, dtype=torch.bool, device=dev)
         if mode != "bootstrap":
@@ -198,15 +206,20 @@ class TwoViewRunner:
         if mode not in self._steps:
             self._steps[mode] = self._mk(mode)
         dev = feats_cur[0].device
-        as_dev = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
-                                           device=dev)
+
+        def as_dev(a):
+            with tracing.wait("two_view_upload"):
+                return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                       device=dev)
         out_kp, out_small = self._steps[mode](
             feats_ref, feats_cur, as_dev(Tcw_ref), draws,
             float(median_gt_depth or 1.0), float(depth_scale or 1.0),
             self._nn_default if nn_thresh is None else float(nn_thresh),
             decoder, None if c2w_pred is None else as_dev(c2w_pred), bound)
-        kp = out_kp.cpu().numpy()
-        small = out_small.cpu().numpy()
+        with tracing.wait("two_view_read"):
+            kp = out_kp.cpu().numpy()
+        with tracing.wait("two_view_read"):
+            small = out_small.cpu().numpy()
         return {
             "Tcw_cur": small[:16].reshape(4, 4).astype(np.float64),
             "uv_cur": kp[:, 0:2], "uv_ref": kp[:, 2:4],

@@ -7,13 +7,16 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import tracing
+
 
 def null_vectors(A: torch.Tensor):
     """Right singular vector of the smallest singular value of each (..., m,
     n) matrix, and a mask of the matrices that were finite (non-finite ones
     are solved as zeros; the caller drops them)."""
     finite = torch.isfinite(A).all(dim=-1).all(dim=-1)
-    _, _, vh = torch.linalg.svd(torch.nan_to_num(A, 0.0, 0.0, 0.0))
+    with tracing.wait("null_vectors", syncs=2):
+        _, _, vh = torch.linalg.svd(torch.nan_to_num(A, 0.0, 0.0, 0.0))
     return vh[..., -1, :], finite
 
 

@@ -38,9 +38,10 @@ import ctypes
 import torch
 
 from ..models.embeddings import fourier_project
+from ..utils import tracing
 from . import build
 from .fused_vg import (GRAD_LEN, PARAM_NAMES, PackedWeights, _check, _path,
-                       _stream, _unpack_grads, launches, pack_weights)
+                       _stream, _unpack_grads, pack_weights)
 
 HID = 256
 
@@ -169,7 +170,7 @@ def k5_forward(params: dict, x: torch.Tensor) -> torch.Tensor:
     launch, out = k5_launch(build.load("fused_mlp"), pack_weights(params),
                             x.detach().float().contiguous())
     launch()
-    launches["fused_mlp_fwd"] += 1
+    tracing.count("fused_mlp_fwd")
     return out
 
 
@@ -182,7 +183,7 @@ def k6_backward(params: dict, x: torch.Tensor, g: torch.Tensor,
         x.detach().float().contiguous(), g.detach().float().contiguous(),
         param_grads, x_grad)
     launch()
-    launches["fused_mlp_bwd"] += 1
+    tracing.count("fused_mlp_bwd")
     emb = params["embedder.B"].shape[1]
     return (dx if x_grad else None,
             _unpack_grads(grads, emb) if param_grads else None)

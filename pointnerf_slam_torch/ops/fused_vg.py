@@ -54,6 +54,7 @@ import torch
 from ..core.sampling import ray_far_bound
 from ..models.decoders import mlp_apply
 from ..render.renderer import clip_far
+from ..utils import tracing
 from . import build
 from .render_math import importance_z2, reg_zvals, weights, z_pass1
 
@@ -64,10 +65,12 @@ _BEYOND_HI = 0.05
 EMB_PAD = 128          # Fourier columns padded 93 -> 128 in the kernel layout
 HID = 256
 
-# kernel launches since the last reset, by wrapper (chip_smoke reads these)
-launches = {"p1_sigma": 0, "fused_vg_mapper": 0, "fused_vg_tracker": 0,
-            "megakernel_fwd": 0, "megakernel_bwd": 0, "fused_mlp_fwd": 0,
-            "fused_mlp_bwd": 0}
+# kernel launches since the last reset, by wrapper: the tracer's counters,
+# counted while it records (chip_smoke reads these)
+launches = tracing.TRACER.counters
+launches.update(dict.fromkeys(
+    ("p1_sigma", "fused_vg_mapper", "fused_vg_tracker", "megakernel_fwd",
+     "megakernel_bwd", "fused_mlp_fwd", "fused_mlp_bwd"), 0))
 
 
 def reset_launches() -> None:
@@ -318,7 +321,7 @@ def p1_sigma(pw: PackedWeights, rays: torch.Tensor, bound: torch.Tensor,
         return p1_sigma_reference(pw, rays, bound, S1)
     launch, sig1 = p1_launch(build.load("p1_sigma"), pw, rays, bound, S1)
     launch()
-    launches["p1_sigma"] += 1
+    tracing.count("p1_sigma")
     return sig1
 
 
@@ -485,7 +488,7 @@ def _fused_vg_cuda(spec: VGSpec, params: dict, rays_o, rays_d, gt_d, gt_c,
         build.load("fused_vg"), spec, params, rays_o, rays_d, gt_d, gt_c,
         ray_w, t_reg, z2, bound)
     launch()
-    launches[f"fused_vg_{spec.mode}"] += 1
+    tracing.count(f"fused_vg_{spec.mode}")
     emb = params["embedder.B"].shape[1]
     dparams = _unpack_grads(grads, emb) if spec.param_grads else None
     return (outv[:, 0].sum(), dparams, dray[:, 0:3], dray[:, 3:6],
@@ -504,12 +507,14 @@ def _make_vg_parts(rcfg, mode: str, w_color: float, w_reg: float,
     def prepare(decoder, rays_o, rays_d, gt_d, bound):
         """Pass-1 sigma + importance resample -> merged z2 (N, S1+SI),
         stop-gradient; reusable for K iterations (resample_every)."""
-        pw = pack_weights(params_of(decoder))
-        rays = _pack_rays(rays_o, rays_d, gt_d, bound)
-        sig1 = p1_sigma(pw, rays, bound, spec.S1)
-        z1 = z_pass1(rays[:, 6:7], rays[:, 7:8], spec.S1)
-        dn = torch.sqrt(torch.sum(rays[:, 3:6] ** 2, dim=1, keepdim=True))
-        return importance_z2(sig1, z1, dn, spec.SI)
+        with tracing.span("vg.prepare"):
+            pw = pack_weights(params_of(decoder))
+            rays = _pack_rays(rays_o, rays_d, gt_d, bound)
+            sig1 = p1_sigma(pw, rays, bound, spec.S1)
+            z1 = z_pass1(rays[:, 6:7], rays[:, 7:8], spec.S1)
+            dn = torch.sqrt(torch.sum(rays[:, 3:6] ** 2, dim=1,
+                                      keepdim=True))
+            return importance_z2(sig1, z1, dn, spec.SI)
 
     def main(decoder, rays_o, rays_d, gt_d, gt_c, ray_w, t_reg, z2, bound):
         """Loss value and gradients at the given z2."""
@@ -575,13 +580,16 @@ def fused_vg_loss(main, decoder, rays_o, rays_d, gt_d, gt_c, ray_w, t_reg,
     """main(...) as a differentiable loss: returns (loss, depth, var, col).
     loss.backward() puts the parameter gradients into the decoder's .grad
     (mapper) and chains d(loss)/d(rays) into whatever built rays_o/rays_d
-    (tracker, bundle adjustment)."""
-    params = params_of(decoder)
-    plist = [params[k] for k in PARAM_NAMES] if main.spec.param_grads \
-        else []
+    (tracker, bundle adjustment). The tracer's span `vg.main` covers the
+    call: the weights and rays packed, K1's launch, the gradients unpacked
+    and the autograd node."""
+    with tracing.span("vg.main"):
+        params = params_of(decoder)
+        plist = [params[k] for k in PARAM_NAMES] if main.spec.param_grads \
+            else []
 
-    def run():
-        return main(params, rays_o, rays_d, gt_d, gt_c, ray_w, t_reg, z2,
-                    bound)
+        def run():
+            return main(params, rays_o, rays_d, gt_d, gt_c, ray_w, t_reg, z2,
+                        bound)
 
-    return _FusedVGFn.apply(run, rays_o, rays_d, *plist)
+        return _FusedVGFn.apply(run, rays_o, rays_d, *plist)

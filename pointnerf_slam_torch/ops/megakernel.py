@@ -48,9 +48,10 @@ import torch
 from ..core.sampling import ray_far_bound
 from ..models.decoders import mlp_apply
 from ..render.renderer import clip_far
+from ..utils import tracing
 from . import build
 from .fused_vg import (GRAD_LEN, PARAM_NAMES, _check, _inside, _path,
-                       _stream, _unpack_grads, launches, pack_weights,
+                       _stream, _unpack_grads, pack_weights,
                        params_of)
 from .fused_vg import supports_megakernel  # noqa: F401 (the cover, here
 #                                            as in the JAX reference)
@@ -168,7 +169,7 @@ def k3_forward(pw, rays_o, rays_d, gt_d, t_reg, bound, S1: int, SI: int,
         build.load("megakernel"), pw, rays_o, rays_d, gt_d, t_reg, bound,
         S1, SI, with_reg)
     launch()
-    launches["megakernel_fwd"] += 1
+    tracing.count("megakernel_fwd")
     return (outv[:, 0].clone(), outv[:, 1].clone(), outv[:, 2:5].clone(),
             sigr, z2, saved)
 
@@ -247,7 +248,7 @@ def k4_backward(pw, rays, treg, z2, b6, gdep, gvar, gcol, gsigr, S1: int,
                             b6, gdep, gvar, gcol, gsigr, S1, SRk,
                             param_grads)
     launch()
-    launches["megakernel_bwd"] += 1
+    tracing.count("megakernel_bwd")
     return out
 
 

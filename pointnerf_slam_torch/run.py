@@ -12,12 +12,17 @@ overlaid in a config of one's own through `inherit_from`). --n_frames N
 the sequence from DIR instead of the config's data.input_folder. Prints,
 per processed
 frame, the tracking loss (first -> best), the camera error against gt
-(mean |cam7 - gt cam7| and translation error in metres), the host
-seconds of the front-end, tracking and mapping (on the card also each
-phase's time between its events on the stream), and the mapping loss
-(first -> last); at the end the translation RMSE and max of the poses
-against gt, unaligned and Horn-aligned (tools/eval_ate.py), and one line
-of phase seconds, which is also appended to <output>/run_log.txt. Output
+(mean |cam7 - gt cam7| and translation error in metres), each phase's
+(front-end, tracking, mapping) host self seconds and the seconds it
+waited on the card, apart ("host", "wait"; on the card also the phase's
+time between its events on the stream, "card"), the frame's waits in all,
+and the mapping loss (first -> last); at the end the translation RMSE and
+max of the poses against gt, unaligned and Horn-aligned
+(tools/eval_ate.py), and one line of the phases' host and wait seconds
+(with the waits outside them), which is also appended to
+<output>/run_log.txt. A wait is the host blocked on the card: a blocking
+read from the device or a pageable copy to it (the tracer's `wait.*`
+spans, utils/tracing.py). Output
 (--output, else the config's data.output): checkpoints in <output>/ckpts/
 (mapping.ckpt_freq, the last frame, and before each mapping frame the
 state up to the frame before it), meshes in <output>/mesh/ (one every
@@ -28,7 +33,12 @@ meshing.eval_rec, `final_mesh_eval_rec.ply`), render panels in
 (outputs.attach_outputs).
 
 --profile DIR writes a torch.profiler trace of the run (host and, on the
-card, CUDA activity) to DIR as a Chrome trace (`*.pt.trace.json`).
+card, CUDA activity) to DIR as a Chrome trace (`*.pt.trace.json`), and
+the program's own spans (utils/tracing.py: step, the phases, the mapper's
+window selection, the wrappers, the optimiser steps, keyframe insertion,
+the front-end's stages and every wait) beside it as one Chrome trace,
+`program_spans.json`, on the same clock (`baseTimeNanoseconds` plus `ts`
+microseconds is the host's wall clock in both).
 --live_vis opens the live window (outputs/live_view.py; it disables
 itself with a notice where there is no GUI backend).
 
@@ -71,6 +81,7 @@ from .io.config import load_config
 from .outputs import attach_outputs
 from .parallel.mapping import resolve_data_devices
 from .tools.eval_ate import evaluate_ate, latest_checkpoint
+from .utils import tracing
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -83,9 +94,12 @@ def frame_line(rec: dict) -> str:
         parts.append(f"cam err {float(rec['cam_err']):.5f} "
                      f"(t {float(rec['t_err_m']) * 1000:.1f} mm)")
     dev = PointNeRFSLAM.device_seconds(rec)
-    secs = [f"{k} {rec[k + '_s']:.2f} s" + (f" (card {dev[k]:.2f} s)"
-                                            if k in dev else "")
+    secs = [f"{k} host {rec[k + '_s']:.2f} s wait "
+            f"{rec.get(k + '_wait_s', 0.0):.2f} s"
+            + (f" (card {dev[k]:.2f} s)" if k in dev else "")
             for k in ("frontend", "tracking", "mapping") if k + "_s" in rec]
+    if "wait_s" in rec:
+        secs.append(f"waits {rec['wait_s']:.2f} s")
     if secs:
         parts.append(", ".join(secs))
     if "map_losses" in rec:
@@ -307,13 +321,18 @@ def run(args, cfg, device: str) -> int:
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                          if slam.device.type == "cuda"
                                          else [])
+        n0 = len(tracing.TRACER.spans)
         with profile(activities=acts,
                      on_trace_ready=tensorboard_trace_handler(args.profile)):
             est, gt = slam.run(start, on_frame=on_frame)
             if slam.device.type == "cuda":
                 torch.cuda.synchronize()
         if rank == 0:
-            print(f"profiler trace in {args.profile}", flush=True)
+            spans = tracing.write_chrome_trace(
+                os.path.join(args.profile, "program_spans.json"),
+                tracing.TRACER.spans[n0:])
+            print(f"profiler trace in {args.profile}, the program's spans "
+                  f"in {spans}", flush=True)
     else:
         est, gt = slam.run(start, on_frame=on_frame)
     if slam.device.type == "cuda":
@@ -337,16 +356,19 @@ def run(args, cfg, device: str) -> int:
 
 
 def phase_line(slam, start: int, wall: float) -> str:
-    """Frames, wall seconds, and the host (and on the card, device)
-    seconds of the front-end, tracking and mapping of this attempt."""
-    t = slam.timings
+    """Frames, wall seconds, and the host self seconds and the seconds
+    waited on the card (and on the card, the device seconds) of the
+    front-end, tracking and mapping of this attempt, and the waits outside
+    them."""
+    t, w = slam.timings, slam.waits
     dev = {}
     for rec in slam.frame_log:
         for k, v in PointNeRFSLAM.device_seconds(rec).items():
             dev[k] = dev.get(k, 0.0) + v
-    parts = [f"{k} {t[k]:.1f} s" + (f" (card {dev[k]:.1f} s)" if k in dev
-                                    else "")
+    parts = [f"{k} host {t[k]:.1f} s wait {w[k]:.1f} s"
+             + (f" (card {dev[k]:.1f} s)" if k in dev else "")
              for k in ("frontend", "tracking", "mapping")]
+    parts.append(f"other wait {w['other']:.1f} s")
     n = slam.n_img - start
     return (f"frames {start}..{slam.n_img - 1} ({n}) in {wall:.1f} s wall "
             f"({n / max(wall, 1e-9):.3f} frames/s): " + ", ".join(parts))
