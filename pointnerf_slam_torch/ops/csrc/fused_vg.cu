@@ -19,14 +19,19 @@
 //                 ||d|| term; writes the (P, 4) head cotangent
 //   chain_kernel  128-point tiles (hopper_bwd.cuh): dh chain on wgmma with
 //                 bf16 cotangents, masks from the bits, cos(x.B) in f32,
-//                 per-point d(loss)/dx, per-block bias / head / B sums
-//   wgrad_kernel  dW_l = in_l^T @ dh_l on wgmma over all points: split-K
-//                 128 x 256 partial tiles, then the ordered reduce_rows
+//                 per-point d(loss)/dx, per-block bias / bo / B sums and
+//                 the bf16(dhead) images; its operands prefetched by the
+//                 producer warp, its spills drained by bulk stores behind
+//                 the next layer's products
+//   wgrad_kernel  dW_l = in_l^T @ dh_l and dWo = h3^T bf16(dhead) on wgmma
+//                 over all points: split-K partial tiles (128 x 256; dWo
+//                 256 x 8), then the ordered reduce_rows
 //   vg_dray       one thread per ray: d/d(o, d) = sum dx, sum z * dx
 //
 // Bound on the H100 (mapper call, 379,848 points padded to 380,928):
 // 0.510 ms of bf16 tensor-core work (forward, dh chain, weight gradients
-// at 989 TFLOP/s); the spill's byte floor is ~3.9 GB, ~1.17 ms at
+// at 989 TFLOP/s); the spills' byte floors are 0.276 ms (forward), 0.254
+// ms (chain) and 0.497 ms (weight gradients), ~3.4 GB, ~1.03 ms at
 // 3.35 TB/s (hopper_bwd.cuh). The design: weights streamed through a
 // shared-memory ring by bulk copies, wgmma with activations kept on chip,
 // spills and their reloads as whole 32 KB bulk copies, ReLU masks as bits
@@ -187,6 +192,24 @@ __global__ void __launch_bounds__(128) mma_probe(const uint4* a, const uint4* b,
     out[ACC_ROW(r0, i & 3) * 256 + ACC_COL(i >> 2, q, i & 3)] = acc[i];
 }
 
+// Counts the floats (every bit pattern, both NaN counting as equal) where
+// the chain's cosine (hopper_bwd.cuh chain_cos) differs from cosf. A debug
+// entry for the card-only tests.
+__global__ void cos_check(unsigned long long* mismatches) {
+  unsigned long long n = 0;
+  for (unsigned long long i = blockIdx.x * (unsigned long long)blockDim.x +
+                              threadIdx.x;
+       i < (1ull << 32); i += (unsigned long long)gridDim.x * blockDim.x) {
+    float a[1] = {__uint_as_float((unsigned)i)};
+    const float ref = cosf(a[0]);
+    hop::chain_cos(a);
+    if (__float_as_uint(a[0]) != __float_as_uint(ref) &&
+        !(a[0] != a[0] && ref != ref))
+      ++n;
+  }
+  if (n) atomicAdd(mismatches, n);
+}
+
 }  // namespace
 
 extern "C" long long fused_vg_workspace_bytes(int n, int S2, int SR, int pg) {
@@ -226,5 +249,11 @@ extern "C" int hopper_mma_probe(const void* a, const void* b, float* out,
   if (e != cudaSuccess) return (int)e;
   mma_probe<<<1, 128, smem, stream>>>(static_cast<const uint4*>(a),
                                       static_cast<const uint4*>(b), out, tn);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int hopper_cos_check(unsigned long long* mismatches,
+                                cudaStream_t stream) {
+  cos_check<<<4 * hop::num_sms(), 256, 0, stream>>>(mismatches);
   return (int)cudaGetLastError();
 }

@@ -308,6 +308,18 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
+// m64n8k16: the weight gradients' dWo tile (256 x 4 of it used)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n8(float (&d)[4], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
 
 // ---- small device helpers -------------------------------------------------
 __device__ __forceinline__ float bf16r(float x) {

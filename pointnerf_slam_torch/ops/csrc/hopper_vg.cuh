@@ -37,9 +37,14 @@ cudaError_t vg_sequence(const hop::Weights& w, const hop::WS& ws,
     CK((hop::launch_chain<false, true>(w, ws, stream)));
   if (param_grads) {
     CK(hop::launch_wgrad(ws, stream));
-    reduce_rows<<<(SMALL + 255) / 256, 256, 0, stream>>>(
-        ws.small, (int)hop::chain_blocks(ws.Ppad / hop::TILE), SMALL, SMALL,
-        grads);
+    // the chain's rows: dB and db0..db3, then dbo; the GEMM's dWo partials
+    const int nb = (int)hop::chain_blocks(ws.Ppad / hop::TILE);
+    reduce_rows<<<(hop::CROW_BO + 255) / 256, 256, 0, stream>>>(
+        ws.small, nb, hop::CROW, hop::CROW_BO, grads + SMALL_B);
+    reduce_rows<<<1, 256, 0, stream>>>(ws.small + hop::CROW_BO, nb, hop::CROW,
+                                       4, grads + SMALL_BO);
+    reduce_rows<<<(4 * hop::HID + 255) / 256, 256, 0, stream>>>(
+        ws.wpo, hop::NSPLIT_O, 4 * hop::HID, 4 * hop::HID, grads + SMALL_WO);
     CK(cudaGetLastError());
     for (int l = 0; l < 4; ++l) {
       const int ncols = (l == 0 ? hop::EMB : hop::HID) * hop::HID;

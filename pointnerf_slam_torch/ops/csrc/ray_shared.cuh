@@ -16,9 +16,9 @@
 namespace {
 
 constexpr int MAXS = 64;             // most merged samples per ray
-// small per-block gradient sums, in the order of the flat gradient
-// buffer: dB (3 x 128) | db0..db3 (4 x 256) | dWo (256 x 4) | dbo (4),
-// then the weight matrices W0p (128 x 256), W1..W3 (256 x 256)
+// the flat gradient buffer: dB (3 x 128) | db0..db3 (4 x 256) | dWo
+// (256 x 4) | dbo (4), then the weight matrices W0p (128 x 256), W1..W3
+// (256 x 256)
 constexpr int SMALL_B = 0, SMALL_BIAS = 384, SMALL_WO = 1408, SMALL_BO = 2432;
 constexpr int SMALL = 2436;
 constexpr long GRAD_W[4] = {SMALL, SMALL + 128 * 256,

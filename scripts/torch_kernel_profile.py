@@ -6,16 +6,20 @@ decoder pair (K5 forward, K6 backward).
   python3 scripts/torch_kernel_profile.py [--reps 20]
 
 At the main path's shapes (mapper: 4998 rays x (44 + 32) points, colour,
-w_beyond 1, no ray gradients; tracker: 5000 rays x 44 points, ray
-gradients only; p1: 4998 rays x 32 points; K3/K4: the handle_dynamic
+w_beyond 1, with ray gradients as the benchmark's cells run it and
+without; tracker: 5000 rays x 44 points, ray gradients only; p1: 4998
+rays x 32 points; K3/K4: the handle_dynamic
 tracker's 5000 rays x (32 + 12), K4 without weight gradients, and the
 mapper shape 4998 x (32 + 12 + 32) with them; K5 at a 500,000-point
 chunk of room_bench's mesh grid, K6 at the 379,848 points the plain-path
 mapper's loss reaches, with weight gradients only, dx only and both) it
 runs each call under
 torch.profiler and prints the CUDA time per kernel name (ms per call,
-averaged over --reps calls) and the device-busy share of the window.
-Needs one NVIDIA card; prints the card's name and power limit first.
+averaged over --reps calls) and the device-busy share of the window;
+beside the dh chain and the weight-gradient GEMM it prints their byte and
+product floors (`floors`, the reckoning of csrc/hopper_bwd.cuh) and the
+share of the floor the kernel reaches. Needs one NVIDIA card; prints the
+card's name and power limit first.
 
 The sub-kernels (csrc/hopper_mlp.cuh, csrc/fused_vg.cu,
 csrc/megakernel.cu): `prepare` runs `hop::fwd_kernel<0>` (K2, pass-1
@@ -42,6 +46,36 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
+PEAK_BF16, PEAK_BYTES = 989e12, 3.35e12     # H100 SXM data sheet
+NSPLIT_W, NSPLIT_O = 17, 13                 # csrc/hopper_bwd.cuh
+
+
+def floors(points: int, pg: bool, dx: bool) -> dict:
+    """{kernel: (floor ms, "bytes" | "operations")} of the dh chain and,
+    with weight gradients, the weight-gradient GEMM, for `points` points
+    (padded to 1024 as the kernels pad them). Per point the chain reads
+    the 4 layers' ReLU bit masks (128 B), x4 and dhead (32 B) and writes,
+    with weight gradients, dh0..dh3 in bf16 (2048 B) and the bf16(dhead)
+    image (16 B), with dx its f32 dx (12 B); its products are 2 x (3 x
+    256 x 256 + 256 x 128) FLOP. The GEMM reads emb, h0..h3 and dh0..dh3
+    in bf16 and the image (4368 B), writes its split-K partials, and
+    computes 2 x (128 x 256 + 3 x 256 x 256 + 256 x 4) FLOP a point."""
+    ppad = (points + 1023) // 1024 * 1024
+
+    def one(nbytes, flops):
+        tb, tf = nbytes / PEAK_BYTES, flops / PEAK_BF16
+        return (1e3 * max(tb, tf), "bytes" if tb >= tf else "operations")
+
+    out = {"chain_kernel": one(
+        ppad * (128 + 32 + (2048 + 16 if pg else 0) + (12 if dx else 0)),
+        ppad * 2 * (3 * 256 * 256 + 256 * 128))}
+    if pg:
+        out["wgrad_kernel"] = one(
+            ppad * 4368 + (NSPLIT_W * (3 * 256 * 256 + 128 * 256)
+                           + NSPLIT_O * 256 * 4) * 4,
+            ppad * 2 * (128 * 256 + 3 * 256 * 256 + 256 * 4))
+    return out
+
 
 def main() -> int:
     ap = argparse.ArgumentParser()
@@ -67,7 +101,7 @@ def main() -> int:
     cams[:, 4] = torch.linspace(-0.3, 0.3, 6, device=dev)
     from pointnerf_slam_torch.ops import megakernel as MK
 
-    def show(label, fn):
+    def show(label, fn, floor=None):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -93,9 +127,16 @@ def main() -> int:
         print(f"\n{label}: {wall:.3f} ms per call (CUDA events), kernels "
               f"{busy:.3f} ms, device busy {100 * busy / wall:.1f}%")
         for ms, cnt, key in rows[:14]:
-            print(f"  {ms:8.3f} ms  x{cnt:<3d} {key[:90]}")
+            note = ""
+            for name, (fms, by) in (floor or {}).items():
+                if name in key:
+                    note = (f"  [floor {fms:.3f} ms by {by}, "
+                            f"{100 * fms / ms:.1f}% of it]")
+            print(f"  {ms:8.3f} ms  x{cnt:<3d} {key[:90]}{note}")
 
     variants = [
+        ("mapper", 4998, dict(w_color=0.05, w_reg=0.0005, w_beyond=1.0,
+                              with_ray_grads=True)),
         ("mapper", 4998, dict(w_color=0.05, w_reg=0.0005, w_beyond=1.0,
                               with_ray_grads=False)),
         ("tracker", 5000, dict(w_color=0.5, param_grads=False)),
@@ -108,8 +149,11 @@ def main() -> int:
         z2 = prep(dec, ro, rd, gt_d, bound)
         show(f"{mode} prepare (p1_sigma + torch middle)",
              lambda: prep(dec, ro, rd, gt_d, bound))
-        show(f"{mode} main (fused_vg)",
-             lambda: main(dec, ro, rd, gt_d, gt_c, ray_w, t_reg, z2, bound))
+        pg = kw.get("param_grads", True)
+        dx = kw.get("with_ray_grads", True)
+        show(f"{mode} main (fused_vg, weight grads {pg}, ray grads {dx})",
+             lambda: main(dec, ro, rd, gt_d, gt_c, ray_w, t_reg, z2, bound),
+             floors(n * (44 + (32 if mode == "mapper" else 0)), pg, dx))
     pw = F.pack_weights({k: v.detach() for k, v in F.params_of(dec).items()})
     for n, with_reg, pg in ((5000, False, False), (4998, True, True)):
         ro, rd, gt_d, _ = rays_batch(torch, gen, n, cams)
@@ -124,7 +168,8 @@ def main() -> int:
         show(f"K3 ({shape})", lambda: MK.k3_forward(
             pw, ro, rd, gt_d, t_reg, bound, 32, 12, with_reg))
         show(f"K4 ({shape}, weight grads {pg})", lambda: MK.k4_backward(
-            pw, rays8, treg, out[4], b6, *cot, 32, SRk, pg))
+            pw, rays8, treg, out[4], b6, *cot, 32, SRk, pg),
+            floors(n * (44 + (32 if with_reg else 0)), pg, True))
     from chip_smoke import mesh_chunk, plain_mapper_points
     from pointnerf_slam_torch.ops import fused_mlp as M
     params = {k: v.detach() for k, v in F.params_of(dec).items()}
@@ -137,7 +182,8 @@ def main() -> int:
     g = torch.randn(x.shape[0], 4, generator=gen, device=dev)
     for pg, xg in ((True, False), (False, True), (True, True)):
         show(f"K6 ({x.shape[0]} points, weight grads {pg}, dx {xg})",
-             lambda: M.k6_backward(params, x, g, pg, xg))
+             lambda: M.k6_backward(params, x, g, pg, xg),
+             floors(x.shape[0], pg, xg))
     return 0
 
 

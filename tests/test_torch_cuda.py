@@ -352,8 +352,18 @@ def test_cuda_fused_decoder_autograd(cuda):
 _S2_SPLIT = {20: (12, 8), 32: (24, 8), 44: (32, 12), 64: (40, 24)}
 
 
+# K1's ray counts by the chain's tile schedule (one persistent block an
+# SM, 132 on the H100, over 128-point tiles of a point count padded to
+# 1024, so a launch holds 8 tiles or a multiple): n = 1 and 7 give 8 tiles,
+# one a block, the fewest a launch has (a single tile or an odd count
+# cannot occur); 333 gives 56-256 tiles, 229 x (44 + 32) gives 136, so
+# four blocks run a second tile and reuse their operand buffers; 1500 and
+# 4998 (the cells' 4998 x (44 + 32), 2976 tiles) give every block many
+_N_RAGGED = [1, 7, 229, 333, 1500, 4998]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 7, 333, 1500, 4998])
+@pytest.mark.parametrize("n", _N_RAGGED)
 @pytest.mark.parametrize("S2", sorted(_S2_SPLIT))
 @pytest.mark.parametrize("SR", [0, 32])
 @pytest.mark.parametrize("pg,rg", [(True, True), (True, False),
@@ -361,7 +371,8 @@ _S2_SPLIT = {20: (12, 8), 32: (24, 8), 44: (32, 12), 64: (40, 24)}
 def test_cuda_fused_vg_ragged(cuda, n, S2, SR, pg, rg):
     """The Hopper K1 (128-point tiles over a point count padded to 1024)
     against its plain version with chip_smoke's check_vg, at every
-    combination of parameter and ray gradients."""
+    combination of parameter and ray gradients and at the tile counts of
+    _N_RAGGED."""
     import dataclasses
     dec, rays, b = setup(cuda, n=n)
     if n < 8:           # keep a depth-supervised ray at the smallest sizes
@@ -402,11 +413,16 @@ def test_cuda_p1_sigma_ragged(cuda, n, S1):
 
 
 @pytest.mark.cuda
-def test_cuda_fused_vg_bit_reproducible(cuda):
+@pytest.mark.parametrize("n", [1, 229, 4998])
+def test_cuda_fused_vg_bit_reproducible(cuda, n):
     """Two launches of the mapper K1 with weight and ray gradients give
     the same loss, gradients and ray gradients bit for bit (split-K
-    partials and ordered reduces, no atomics)."""
-    dec, rays, b = setup(cuda, n=4998)
+    partials and ordered reduces, no atomics), at 8 tiles (one a block),
+    136 (four blocks run two) and the cells' 2976."""
+    dec, rays, b = setup(cuda, n=n)
+    if n < 8:
+        rays[2] = torch.where(rays[2] > 0, rays[2], torch.full_like(
+            rays[2], 1.7))
     prep, main = F.make_fused_vg_split(RenderConfig(), "mapper", **MAPPER,
                                        w_beyond=1.0)
     z2 = prep(dec, *rays[:3], b)
@@ -418,6 +434,29 @@ def test_cuda_fused_vg_bit_reproducible(cuda):
     assert torch.equal(a[2], c[2]) and torch.equal(a[3], c[3])
     for x, y in zip(a[4], c[4]):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_vg_head_gradients(cuda):
+    """dWo = h3^T bf16(g) comes from the weight-gradient GEMM (an m64n8
+    product on the chain's bf16(g) images) and dbo from the chain's rows:
+    at the cells' shape (4998 rays x (44 + 32), weight and ray gradients)
+    both pass check_vg's rule against the plain version, and are nonzero."""
+    dec, rays, b = setup(cuda, n=4998)
+    noise = sigma_noise(dec, rays, b)
+    prep, main = F.make_fused_vg_split(RenderConfig(), "mapper", **MAPPER,
+                                       w_beyond=1.0)
+    z2 = prep(dec, *rays[:3], b)
+    args = (*rays, z2, b)
+    params = F.params_of(dec)
+    out_k = F._fused_vg_cuda(main.spec, params, *args)
+    out_p = F.fused_vg_reference(main.spec, params, *args)
+    S.check_vg("mapper head gradients", out_k, out_p, main.spec, args,
+               params, noise)
+    for k in ("out.w", "out.b"):
+        gk, gp = out_k[1][k], out_p[1][k]
+        assert gk.shape == gp.shape and bool(torch.isfinite(gk).all()), k
+        assert float(gk.abs().max()) > 0.0, k
 
 
 @pytest.mark.cuda
@@ -450,6 +489,24 @@ def test_cuda_wgmma_tile_layout(cuda, tn):
     torch.cuda.synchronize()
     err = float((out.double().cpu() - ref).abs().max())
     assert err <= 1e-5 * float(ref.abs().max()), err
+
+
+@pytest.mark.cuda
+def test_cuda_chain_cos_is_cosf(cuda):
+    """The dh chain's cosine of x . B (hopper_bwd.cuh chain_cos: cosf's own
+    fast path written without its branch, cosf beyond it) equals cosf bit
+    for bit on every float (`hopper_cos_check` counts the bit patterns
+    where they differ; two NaN count as equal)."""
+    import ctypes
+    from pointnerf_slam_torch.ops import build
+    count = torch.zeros(1, dtype=torch.int64, device=cuda)
+    lib = build.load("fused_vg")
+    lib.hopper_cos_check.restype = ctypes.c_int
+    rc = lib.hopper_cos_check(ctypes.c_void_p(count.data_ptr()),
+                              F._stream(count))
+    build.check(lib, rc, "hopper_cos_check")
+    torch.cuda.synchronize()
+    assert int(count.item()) == 0
 
 
 # K3/K4 at ragged shapes: (S1, SI) of box_ba_dynamic's tracker (24 + 8), the
