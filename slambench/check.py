@@ -1,11 +1,16 @@
 """The comparison that decides `correct`: what the timed path produced,
-against the plain reference (`reference/`), number by number, each
-against the limit the cell's file gives it.
+against the plain reference that the cell's configuration names
+(`reference/<name>.py`, found by registry.reference), number by number,
+each against the limit the cell's file gives it. This file holds what
+every scene field shares; the field's own arithmetic (its init, its
+renderer, its losses, its optimizer steps, its precisions) is the
+reference module's, behind the interface reference/imap.py describes.
 
 Numbers (each the worst over the calls captured in a run):
 
-  init_gap       max |decoder at construction - the reference's init from
-                 the seed|; exact.
+  init_gap       max |the system's state at construction (every leaf it
+                 trains or renders with) - the reference's init from the
+                 seed|; exact.
   map_loss1      |L - L_ref| / |L_ref| at the first step of a mapper call.
   map_grad_med   the median leaf's | |g| - |g_ref| | / max(|g_ref|, the
                  median leaf's |g_ref|), at the first step.
@@ -18,12 +23,18 @@ Numbers (each the worst over the calls captured in a run):
                  the same for a tracker call (leaves: quaternion,
                  translation).
   pose_pick      max |committed c2w - c2w of the camera at the call's lowest
-                 loss| over the captured tracker calls.
+                 loss| over the captured tracker calls whose frame the
+                 mapper did not bundle-adjust.
   tri_gap        max relative gap of the camera depth of the triangulated
                  points the reference accepts, against the reference's
                  float64 DLT from the same matches and poses.
   splat_gap      max |stored pseudo-depth - the reference's splat of the
                  same keypoints|; exact.
+
+The check fails closed: where the program's leaves and the reference's
+differ by name or by shape (the initial state, or a captured call's first
+gradients, its state after the first step or after the last followed),
+the numbers that compare them read inf. No leaf is skipped.
 
 The calls' later steps and worst leaves are kept per call in `diag` (the
 losses of steps 2 and 3, the worst leaf's gradient gap, each leaf's change
@@ -34,15 +45,12 @@ in sign between two computations, and the later steps' losses and
 changes part with them; the reference parts so from itself when its start
 is moved by one ulp (PERF.md).
 
-The reference computes at the precision the configuration states: the
-decoder's hidden and head products on bf16 operands with float32
-accumulation, forward and backward (each cotangent rounded before its
-product, as the kernels do), everything else in float32 (TF32 off) or
-float64 (the front-end's geometry, the pose conversion). With `control`,
-the reference computed in the next precision down takes the program's
-place: the decoder's products on float8 e4m3 operands (cotangents
-included), the DLT on TF32 inputs, the splat on bf16 depths, the pose
-conversion and the initial decoder in bf16.
+The reference computes at the precision the configuration states (its
+module's PRECISION), the front-end's geometry and the pose conversion in
+float64. With `control`, the reference computed in the next precision
+down takes the program's place: the field at its module's CONTROL, the
+DLT on TF32 inputs, the splat on bf16 depths, the pose conversion in
+bf16.
 """
 
 from __future__ import annotations
@@ -53,29 +61,24 @@ import numpy as np
 import torch
 
 from .reference import frontend as ref_fe
-from .reference import imap, steps
+from .reference.camera import quat_to_rot
 
 TINY = 1e-30
+STEPS = 3               # optimizer steps followed a captured call
+INF = float("inf")
 
 
-def consts(cfg: dict) -> dict:
-    m, t, cam = cfg["mapping"], cfg["tracking"], cfg["cam"]
-    frames = m["mapping_window_size"] + 1
-    k_map = max(int(m.get("resample_every", 1)), 1)
-    k_trk = max(int(t.get("resample_every", 1)), 1)
-    return {
-        "ppf": m["pixels"] // frames, "width": cam["W"],
-        "intr": (cam["fx"], cam["fy"], cam["cx"], cam["cy"]),
-        "s1": cfg["rendering"]["N_samples"],
-        "si": cfg["rendering"]["N_importance"],
-        "w_color": m["w_color_loss"], "w_reg": 0.0005,
-        "w_beyond": m.get("w_beyond_loss", 0.0), "lr": m["imap_decoders_lr"],
-        "k_map": k_map,
-        "w_color_t": t["w_color_loss"],
-        "lr_quad": t["lr"] * (0.2 if t["seperate_LR"] else 1.0),
-        "lr_trans": t["lr"],
-        "k_track": k_trk if t["iters"] % k_trk == 0 else 1,
-    }
+def _leaf_diff(prog: dict, ref: dict) -> dict | None:
+    """None where both hold the same leaves with the same shapes, else
+    what differs."""
+    shape = {k: tuple(v.shape) for k, v in prog.items()}
+    want = {k: tuple(v.shape) for k, v in ref.items()}
+    if shape == want:
+        return None
+    return {"program_only": sorted(set(shape) - set(want)),
+            "reference_only": sorted(set(want) - set(shape)),
+            "shapes": sorted(k for k in set(shape) & set(want)
+                             if shape[k] != want[k])}
 
 
 def _leaf_gaps(prog: dict, ref: dict, leaves) -> dict:
@@ -97,75 +100,93 @@ def _moving(grads: dict) -> list:
     return [k for k, n in norms.items() if n >= 1e-3 * med]
 
 
-def map_numbers(cap: dict, c: dict, control: bool, diag=None) -> dict:
-    cc = dict(c)
-    if cap["num_iters"] % c["k_map"]:
-        cc["k_map"] = 1
-    ref = steps.follow_map(cap, cc)
+def map_numbers(cap: dict, c: dict, ref, control: bool,
+                diag=None) -> dict:
+    want = ref.follow_map(cap, c, STEPS, ref.PRECISION)
     if control:
-        prog = steps.follow_map(cap, cc, quant="fp8")
+        prog = ref.follow_map(cap, c, STEPS, ref.CONTROL)
         p_losses, p_grads = prog["losses"], prog["grads1"]
         p_params1, p_params = prog["params1"], prog["params"]
     else:
-        p_losses = cap["losses"][:3].tolist()
+        p_losses = cap["losses"][:STEPS].tolist()
         p_grads, p_params1, p_params = cap["grads1"], cap["params1"], \
             cap["params3"]
-    p0 = cap["params0"]
-    leaves = list(ref["grads1"])
-    moving = _moving(ref["grads1"])
+    d = {"loss": _loss_gaps(p_losses, want["losses"])}
+    diff = [x for x in (_leaf_diff(p_grads, want["grads1"]),
+                        _leaf_diff(p_params1, want["params1"]),
+                        _leaf_diff(p_params, want["params"])) if x]
+    if diff:
+        d["leaves_differ"] = diff
+        grad_med = change1 = INF
+    else:
+        p0 = cap["params0"]
+        leaves = list(want["grads1"])
+        moving = _moving(want["grads1"])
 
-    def change(a, b):
-        return _leaf_gaps({n: a[n].float() - p0[n].float() for n in leaves},
-                          {n: b[n] - p0[n].float() for n in leaves}, moving)
-    d = {"loss": _loss_gaps(p_losses, ref["losses"]),
-         "grad": _leaf_gaps(p_grads, ref["grads1"], leaves),
-         "change1": change(p_params1, ref["params1"]),
-         "change": change(p_params, ref["params"])}
+        def change(a, b):
+            return _leaf_gaps(
+                {n: a[n].float() - p0[n].float() for n in leaves},
+                {n: b[n] - p0[n].float() for n in leaves}, moving)
+        d.update(grad=_leaf_gaps(p_grads, want["grads1"], leaves),
+                 change1=change(p_params1, want["params1"]),
+                 change=change(p_params, want["params"]))
+        grad_med = statistics.median(d["grad"].values())
+        change1 = max(d["change1"].values())
     if diag is not None:
-        diag.append(dict(d, kind="map", idx=cap["idx"]))
-    return {"map_loss1": d["loss"][0],
-            "map_grad_med": statistics.median(d["grad"].values()),
-            "map_change1": max(d["change1"].values())}
+        diag.append(dict(d, kind="map", idx=cap["idx"],
+                         stage=cap.get("stage")))
+    return {"map_loss1": d["loss"][0], "map_grad_med": grad_med,
+            "map_change1": change1}
 
 
-def track_numbers(cap: dict, c: dict, control: bool, diag=None) -> dict:
-    cc = dict(c, w_color=c["w_color_t"])
-    ref = steps.follow_track(cap, cc)
+def track_numbers(cap: dict, c: dict, ref, control: bool,
+                  diag=None) -> dict:
+    want = ref.follow_track(cap, c, STEPS, ref.PRECISION)
     cam0 = cap["cam0"].float()
     if control:
-        prog = steps.follow_track(cap, cc, quant="fp8")
+        prog = ref.follow_track(cap, c, STEPS, ref.CONTROL)
         p_losses, p_grads = prog["losses"], prog["grads1"]
         p_cam1, p_cam = prog["cam1"], prog["cam"]
     else:
-        p_losses = cap["losses"][:3].tolist()
+        p_losses = cap["losses"][:STEPS].tolist()
         p_grads, p_cam1, p_cam = cap["grads1"], cap["cam1"], cap["cam3"]
 
     def split(cam):
         cam = cam.float()
         return {"quad": cam[:4] - cam0[:4], "trans": cam[4:] - cam0[4:]}
-    moving = _moving(ref["grads1"])
-    d = {"loss": _loss_gaps(p_losses, ref["losses"]),
-         "grad": _leaf_gaps(p_grads, ref["grads1"], ["quad", "trans"]),
-         "change1": _leaf_gaps(split(p_cam1), split(ref["cam1"]), moving),
-         "change": _leaf_gaps(split(p_cam), split(ref["cam"]), moving)}
+    d = {"loss": _loss_gaps(p_losses, want["losses"])}
+    diff = _leaf_diff(p_grads, want["grads1"])
+    if diff:
+        d["leaves_differ"] = [diff]
+        grad_med = change1 = INF
+    else:
+        moving = _moving(want["grads1"])
+        d.update(grad=_leaf_gaps(p_grads, want["grads1"], list(p_grads)),
+                 change1=_leaf_gaps(split(p_cam1), split(want["cam1"]),
+                                    moving),
+                 change=_leaf_gaps(split(p_cam), split(want["cam"]),
+                                   moving))
+        grad_med = statistics.median(d["grad"].values())
+        change1 = max(d["change1"].values())
     if diag is not None:
         diag.append(dict(d, kind="track", idx=cap["idx"]))
-    out = {"track_loss1": d["loss"][0],
-           "track_grad_med": statistics.median(d["grad"].values()),
-           "track_change1": max(d["change1"].values())}
-    out["pose_pick"] = pose_pick(cap, control)
-    return out
+    return {"track_loss1": d["loss"][0], "track_grad_med": grad_med,
+            "track_change1": change1, "pose_pick": pose_pick(cap, control)}
 
 
 def _c2w(cam: torch.Tensor) -> torch.Tensor:
-    return torch.cat([imap.quat_to_rot(cam[:4]), cam[4:, None]], 1)
+    return torch.cat([quat_to_rot(cam[:4]), cam[4:, None]], 1)
 
 
-def pose_pick(cap: dict, control: bool = False) -> float:
+def pose_pick(cap: dict, control: bool = False) -> float | None:
     """The committed pose against the camera the call evaluated at its
     lowest loss (the first such; losses that never fall below 1e10 keep
     the start), converted in float64. The control converts the same
-    camera in bfloat16 (the next precision below the pose's float32)."""
+    camera in bfloat16 (the next precision below the pose's float32).
+    None where the mapper bundle-adjusted the frame's pose after the
+    tracker (capture.py records no committed pose there)."""
+    if cap["committed"] is None:
+        return None
     best, cam = 1e10, cap["cam0"]
     for loss, c in zip(cap["losses"].tolist(), cap["cams"]):
         if loss < best:
@@ -204,13 +225,20 @@ def splat_gap(cap: dict, stored, H: int, W: int, patch: int,
     return float(np.abs(np.asarray(prog, np.float32) - ref).max())
 
 
-def numbers(run: dict, cfg: dict, seed: int, control: bool = False,
+def _init_gap(got: dict, want: dict) -> float:
+    if _leaf_diff(got, want):
+        return INF
+    return max(float((got[k] - v).abs().max()) for k, v in want.items())
+
+
+def numbers(run: dict, cfg: dict, seed: int, ref, control: bool = False,
             diag: list | None = None) -> dict:
-    """Every number a run's captures give; `diag` (a list) collects each
-    call's per-step and per-leaf gaps."""
+    """Every number a run's captures give against the reference module
+    `ref` (registry.reference); `diag` (a list) collects each call's
+    per-step and per-leaf gaps."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    c = consts(cfg)
+    c = ref.consts(cfg)
     out = {}
 
     def worst(name, v):
@@ -218,17 +246,15 @@ def numbers(run: dict, cfg: dict, seed: int, control: bool = False,
             out[name] = max(out.get(name, v), v)
 
     if run.get("init") is not None:
-        init = imap.init_decoder(seed)
-        got = {k: v.to(torch.bfloat16).float() for k, v in init.items()} \
-            if control else {k: v.cpu().float() for k, v in
-                             run["init"].items()}
-        worst("init_gap", max(float((got[k] - v).abs().max())
-                              for k, v in init.items()))
+        got = ref.init(seed, cfg, ref.CONTROL) if control else \
+            {k: v.cpu().float() for k, v in run["init"].items()}
+        worst("init_gap", _init_gap(got, ref.init(seed, cfg,
+                                                  ref.PRECISION)))
     for cap in run["map_caps"]:
-        for k, v in map_numbers(cap, c, control, diag).items():
+        for k, v in map_numbers(cap, c, ref, control, diag).items():
             worst(k, v)
     for cap in run["track_caps"]:
-        for k, v in track_numbers(cap, c, control, diag).items():
+        for k, v in track_numbers(cap, c, ref, control, diag).items():
             worst(k, v)
     for cap in run["fe_tris"]:
         worst("tri_gap", tri_gap(cap, cfg["cam"]["fx"], control))

@@ -1,5 +1,6 @@
-"""Plain float32 reference of the iMAP* field, its renderer, the mapper's
-and the tracker's losses, and Adam.
+"""Plain reference of the iMAP* field (`"reference": "imap"` in a
+configuration): the field, its renderer, the mapper's and the tracker's
+losses, Adam, and the first steps of a captured mapper or tracker call.
 
 Written from the published description (iMAP* in NICE-SLAM, with
 pointNeRF-SLAM's termination band and the repo's fused sampling
@@ -25,10 +26,33 @@ again here from the pixels, cameras and uniforms the run drew.
 
 `quant` is the precision of the operands of the hidden and head products,
 forward and backward (the cotangent entering each product's backward is
-rounded too; accumulation is float32 in every case): "bf16", the
-configuration's stated precision and the reference's own; "fp8" (float8
-e4m3), the control one step below; None, float32. x @ B, its gradient and
-the bias gradients stay in true float32.
+rounded too; accumulation is float32 in every case): "bf16" (PRECISION),
+the configuration's stated precision and the reference's own; "fp8"
+(CONTROL, float8 e4m3), the control one step below; None, float32. x @ B,
+its gradient and the bias gradients stay in true float32.
+
+The interface every reference module gives check.py:
+
+  PRECISION, CONTROL   the names of the program's precision and of the
+                       control's
+  consts(cfg)          what the steps read from the configuration
+  init(seed, cfg, quant)
+                       every leaf the system starts from, by name: the
+                       decoder drawn from the seed, in float32 at
+                       PRECISION, rounded to bf16 (the step below the
+                       weights' float32) at CONTROL
+  follow_map(cap, c, steps, quant), follow_track(cap, c, steps, quant)
+                       the reference's own first `steps` optimizer steps
+                       of a captured call (below)
+
+Each call is followed on the reference's own path: its own rays, far
+bounds, importance depths, loss, gradients by autograd and Adam, starting
+from the program's state at the call's start (the decoder, or the
+camera), since a SLAM run's state after hundreds of frames can only be
+taken from the run. The pixel indices and regulation uniforms are
+consumed in the engine's order: one pixel batch (and one set of
+importance depths) per resample round of K steps, one set of regulation
+uniforms per mapper step.
 """
 
 from __future__ import annotations
@@ -36,6 +60,11 @@ from __future__ import annotations
 import math
 
 import torch
+
+from slambench.reference.camera import quat_to_rot
+
+PRECISION = "bf16"      # the configuration's: the products' operands
+CONTROL = "fp8"         # one step below
 
 IN_BAND_LO, IN_BAND_HI = 0.10, 0.05
 LAYERS = ("layers.0", "layers.1", "layers.2", "layers.3")
@@ -117,19 +146,6 @@ def _sigma(p, x, bound, quant):
     inside = ((x > bound[:, 0]) & (x < bound[:, 1])).all(-1)
     return raw, torch.where(inside, raw[..., 3],
                             torch.full_like(raw[..., 3], 100.0))
-
-
-def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
-    """(w, x, y, z), not necessarily unit -> rotation (3, 3)."""
-    w, x, y, z = q[0], q[1], q[2], q[3]
-    s = 2.0 / (q * q).sum()
-    return torch.stack([
-        torch.stack([1 - s * (y * y + z * z), s * (x * y - z * w),
-                     s * (x * z + y * w)]),
-        torch.stack([s * (x * y + z * w), 1 - s * (x * x + z * z),
-                     s * (y * z - x * w)]),
-        torch.stack([s * (x * z - y * w), s * (y * z + x * w),
-                     1 - s * (x * x + y * y)])])
 
 
 def rays(cam7: torch.Tensor, i: torch.Tensor, j: torch.Tensor, K: tuple):
@@ -244,3 +260,133 @@ class Adam:
             vh = v / (1 - 0.999 ** self.t)
             out[k] = params[k] - self.lrs[k] * mh / (vh.sqrt() + self.eps)
         return out
+
+
+def consts(cfg: dict) -> dict:
+    m, t, cam = cfg["mapping"], cfg["tracking"], cfg["cam"]
+    frames = m["mapping_window_size"] + 1
+    k_map = max(int(m.get("resample_every", 1)), 1)
+    k_trk = max(int(t.get("resample_every", 1)), 1)
+    return {
+        "ppf": m["pixels"] // frames, "width": cam["W"],
+        "intr": (cam["fx"], cam["fy"], cam["cx"], cam["cy"]),
+        "s1": cfg["rendering"]["N_samples"],
+        "si": cfg["rendering"]["N_importance"],
+        "w_color": m["w_color_loss"], "w_reg": 0.0005,
+        "w_beyond": m.get("w_beyond_loss", 0.0), "lr": m["imap_decoders_lr"],
+        "k_map": k_map,
+        "w_color_t": t["w_color_loss"],
+        "lr_quad": t["lr"] * (0.2 if t["seperate_LR"] else 1.0),
+        "lr_trans": t["lr"],
+        "k_track": k_trk if t["iters"] % k_trk == 0 else 1,
+    }
+
+
+def init(seed: int, cfg: dict, quant) -> dict:
+    """The decoder the configuration starts from (init_decoder), rounded
+    to bf16 at CONTROL."""
+    p = init_decoder(seed)
+    if quant == CONTROL:
+        return {k: v.to(torch.bfloat16).float() for k, v in p.items()}
+    return p
+
+
+def _pixels(idx: torch.Tensor, width: int):
+    return ((idx % width).to(torch.float32),
+            torch.div(idx, width, rounding_mode="floor").to(torch.float32))
+
+
+def follow_map(cap: dict, c: dict, steps: int = 3, quant=PRECISION) -> dict:
+    """cap: params0, colors (F, H, W, 3) u8, depths (F, H, W), cams (F, 7),
+    valid (F,), bound, draws, num_iters; c: consts. Returns losses
+    [steps], grads1 {leaf: tensor}, params1 and params {leaf: tensor}
+    after the first step and after `steps`. A call whose iterations K
+    does not divide resamples every step, as the engine does."""
+    k_map = c["k_map"] if cap["num_iters"] % c["k_map"] == 0 else 1
+    p = {k: v.detach().float().clone() for k, v in cap["params0"].items()}
+    adam = Adam({k: c["lr"] for k in p})
+    draws = iter(cap["draws"])
+    colors, depths = cap["colors"], cap["depths"]
+    F = colors.shape[0]
+    fr = torch.arange(F, device=depths.device)[:, None]
+    valid = cap["valid"].to(torch.float32)
+    ppf = c["ppf"]
+    ray_w = valid.repeat_interleave(ppf) * (F / valid.sum().clamp(min=1.0))
+    losses, grads1, params1, done = [], None, None, 0
+    while done < steps:
+        idx = next(draws)
+        gt_d = depths.reshape(F, -1)[fr, idx].reshape(-1)
+        gt_c = (colors.reshape(F, -1, 3)[fr, idx].to(torch.float32)
+                / 255.0).reshape(-1, 3)
+        i, j = _pixels(idx, c["width"])
+        ro, rd = [], []
+        for f in range(F):
+            o, d = rays(cap["cams"][f].float(), i[f], j[f], c["intr"])
+            ro.append(o)
+            rd.append(d)
+        ro, rd = torch.cat(ro), torch.cat(rd)
+        far = far_clip(ro, rd, gt_d, cap["bound"])
+        z = importance_z(p, ro, rd, gt_d, far, cap["bound"], c["s1"],
+                         c["si"], quant)
+        for _ in range(k_map):
+            if done == steps:
+                break
+            t_reg = next(draws)
+            leaves = {k: v.requires_grad_(True) for k, v in p.items()}
+            loss = mapper_loss(leaves, ro, rd, gt_d, gt_c, ray_w, t_reg, z,
+                               cap["bound"], c["w_color"], c["w_reg"],
+                               c["w_beyond"], quant)
+            g = dict(zip(leaves, torch.autograd.grad(loss,
+                                                     list(leaves.values()))))
+            grads1 = g if grads1 is None else grads1
+            losses.append(float(loss.detach()))
+            with torch.no_grad():
+                p = adam.step({k: v.detach() for k, v in leaves.items()}, g)
+            params1 = p if params1 is None else params1
+            done += 1
+    return {"losses": losses, "grads1": grads1, "params1": params1,
+            "params": p}
+
+
+def follow_track(cap: dict, c: dict, steps: int = 3,
+                 quant=PRECISION) -> dict:
+    """cap: params (the decoder), cam0 (7,), color (H, W, 3) float,
+    depth (H, W), bound, draws; c: consts. Returns losses [steps], grads1
+    {quad, trans}, cam1 and cam (7,) after the first step and after
+    `steps`."""
+    p = {k: v.detach().float() for k, v in cap["params"].items()}
+    cam = {"quad": cap["cam0"][:4].clone(), "trans": cap["cam0"][4:].clone()}
+    adam = Adam({"quad": c["lr_quad"], "trans": c["lr_trans"]})
+    draws = iter(cap["draws"])
+    width = c["width"]
+    losses, grads1, cam1, done = [], None, None, 0
+    while done < steps:
+        idx = next(draws)
+        gt_d = cap["depth"].reshape(-1)[idx]
+        gt_c = cap["color"].reshape(-1, 3)[idx].float()
+        i, j = _pixels(idx, width)
+        with torch.no_grad():
+            ro, rd = rays(torch.cat([cam["quad"], cam["trans"]]), i, j,
+                          c["intr"])
+            far = far_clip(ro, rd, gt_d, cap["bound"])
+            z = importance_z(p, ro, rd, gt_d, far, cap["bound"], c["s1"],
+                             c["si"], quant)
+        for _ in range(c["k_track"]):
+            if done == steps:
+                break
+            q = cam["quad"].detach().requires_grad_(True)
+            t = cam["trans"].detach().requires_grad_(True)
+            ro, rd = rays(torch.cat([q, t]), i, j, c["intr"])
+            loss = tracker_loss(p, ro, rd, gt_d, gt_c, z, cap["bound"],
+                                c["w_color_t"], quant)
+            gq, gt = torch.autograd.grad(loss, [q, t])
+            g = {"quad": gq, "trans": gt}
+            grads1 = g if grads1 is None else grads1
+            losses.append(float(loss.detach()))
+            with torch.no_grad():
+                cam = adam.step({"quad": q.detach(), "trans": t.detach()}, g)
+            cam1 = torch.cat([cam["quad"], cam["trans"]]) if cam1 is None \
+                else cam1
+            done += 1
+    return {"losses": losses, "grads1": grads1, "cam1": cam1,
+            "cam": torch.cat([cam["quad"], cam["trans"]])}

@@ -14,6 +14,9 @@ file of its own under the benchmark's folder; adding one is adding a file:
   metrics/<metric>.py       a reader: read(ctx) -> number | None
   kernels/<kernel>.txt      regular expressions of a kernel's CUDA names,
                             one a line
+  reference/<name>.py       a scene field's plain reference, which a
+                            configuration names under `reference`
+                            (reference/imap.py gives the interface)
 """
 
 from __future__ import annotations
@@ -25,7 +28,10 @@ import os
 import re
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-META_KEYS = ("source", "precision", "reduced", "assumed")
+META_KEYS = ("source", "precision", "reduced", "assumed", "reference")
+REFERENCE_API = ("PRECISION", "CONTROL", "consts", "init", "follow_map",
+                 "follow_track")
+NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
 
 
 def _json(root: str | None, folder: str, name: str) -> dict:
@@ -59,15 +65,36 @@ def merge(base: dict, over: dict | None) -> dict:
     return out
 
 
-def metric(name: str, root: str | None = None):
-    """The reader module of one metric (metrics/<name>.py)."""
-    path = os.path.join(root or ROOT, "metrics", f"{name}.py")
+def _module(kind: str, folder: str, name: str, root: str | None):
+    path = os.path.join(root or ROOT, folder, f"{name}.py")
     if not os.path.exists(path):
-        raise FileNotFoundError(f"no metric reader named {name!r} ({path})")
+        raise FileNotFoundError(f"no {kind} named {name!r} ({path})")
     spec = importlib.util.spec_from_file_location(
-        f"slambench_metric_{name.replace('.', '_')}", path)
+        f"slambench_{folder}_{name.replace('.', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    return mod
+
+
+def metric(name: str, root: str | None = None):
+    """The reader module of one metric (metrics/<name>.py)."""
+    return _module("metric reader", "metrics", name, root)
+
+
+def reference(config_name: str, root: str | None = None):
+    """The plain reference module that configuration `config_name` names
+    under `reference` (reference/<name>.py). There is no default: a
+    configuration that names none, names one that has no file, or whose
+    module lacks part of REFERENCE_API is refused."""
+    name = _json(root, "configs", config_name).get("reference")
+    if not isinstance(name, str) or not NAME.fullmatch(name):
+        raise ValueError(f"configuration {config_name!r} names no plain "
+                         f"reference (its `reference` key: {name!r})")
+    mod = _module("plain reference", "reference", name, root)
+    missing = [a for a in REFERENCE_API if not hasattr(mod, a)]
+    if missing:
+        raise AttributeError(f"reference {name!r} lacks "
+                             f"{', '.join(missing)}")
     return mod
 
 

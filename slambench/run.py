@@ -102,15 +102,20 @@ def cell_parts(cell: str, root=None, cfg_over: dict | None = None):
 
 def build_cell(cell: str, seed: int, device: str, root=None,
                cfg_over: dict | None = None, frames=None):
-    """(spec, cfg, traffic, frames, slam, recorder, init) of one cell."""
+    """(spec, cfg, traffic, frames, slam, recorder, init, ref) of one
+    cell: init is the system's state at construction, ref the plain
+    reference module its configuration names (refused first where it
+    names none)."""
     import torch
 
     from pointnerf_slam_torch.engine.state import Draws
     from pointnerf_slam_torch.engine.system import PointNeRFSLAM
 
-    from .capture import Recorder
+    from . import registry
+    from .capture import Recorder, clone_state
     from .frames import FrameSource
     spec, cfg, traffic = cell_parts(cell, root, cfg_over)
+    ref = registry.reference(spec["config"], root)
     cfg["seed"] = int(seed)
     if frames is None:
         frames = FrameSource(traffic["sequence"], cfg["cam"], cfg["scale"],
@@ -120,10 +125,10 @@ def build_cell(cell: str, seed: int, device: str, root=None,
     if slam.frontend is not None:
         slam.frontend.draws = Draws(
             torch.Generator(device=slam.device).manual_seed(int(seed)))
-    init = {k: v.detach().clone() for k, v in slam.decoder.named_parameters()}
+    init = clone_state(slam)
     rec = Recorder(slam, traced=False)
     rec.install()
-    return spec, cfg, traffic, frames, slam, rec, init
+    return spec, cfg, traffic, frames, slam, rec, init, ref
 
 
 def _frame(slam, rec, frames, idx):
@@ -183,6 +188,15 @@ def drive(slam, rec, frames, traffic, seconds: float, traced: bool,
                                     cats(device))
 
 
+def planned_map_iters(slam) -> int:
+    """Mapper iterations of a steady mapped frame as the system plans
+    them: its outers (`PointNeRFSLAM._step`: one for NICE, else three),
+    each the iterations of its stage schedule."""
+    outer = 1 if slam.nice else 3
+    return outer * sum(n for _, n in slam._stage_schedule(
+        max(slam.ecfg.iters // outer, 1)))
+
+
 def window_tally(slam, rec, win: dict) -> dict:
     """Iterations, failed frames and each phase's device seconds (CUDA
     events of the system's frame records) over the window."""
@@ -192,7 +206,7 @@ def window_tally(slam, rec, win: dict) -> dict:
     recs = {r["idx"]: r for r in slam.frame_log if lo <= r["idx"] <= hi}
     map_iters = track_iters = failed = tracked = 0
     phase = {"mapping": 0.0, "tracking": 0.0, "frontend": 0.0}
-    want_map = max(e.iters // 3, 1) * 3
+    want_map = planned_map_iters(slam)
     for idx in range(lo, hi + 1):
         r = recs.get(idx, {})
         bad = False
@@ -234,7 +248,7 @@ def run(cell: str, seed: int, seconds: float, traced: bool,
         from pointnerf_slam_torch.ops import build
         build.build_all()
     t_cell = time.perf_counter()
-    spec, cfg, traffic, frames, slam, rec, init = build_cell(
+    spec, cfg, traffic, frames, slam, rec, init, ref = build_cell(
         cell, seed, device, root, cfg_over, frames)
     t_warm = time.perf_counter()
     try:
@@ -266,10 +280,10 @@ def run(cell: str, seed: int, seconds: float, traced: bool,
     from . import check, registry, roofline
     limits = spec.get("limits", {})
     diag, diag_ctl = [], []
-    nums = check.numbers(captured, cfg, seed, diag=diag)
+    nums = check.numbers(captured, cfg, seed, ref, diag=diag)
     correct, lines = check.judge(nums, limits, where_present=spec.get(
         "judged_where_present", ()))
-    ctl = check.numbers(captured, cfg, seed, control=True,
+    ctl = check.numbers(captured, cfg, seed, ref, control=True,
                         diag=diag_ctl) if control else None
     ctx = SimpleNamespace(
         cfg=cfg, cell=cell, seconds=win["seconds"],

@@ -23,7 +23,7 @@ HARNESS = ["slambench.run", "slambench.check", "slambench.capture",
            "pointnerf_slam_torch.frontend.fused_twoview",
            "pointnerf_slam_torch.ops.build"]
 REFERENCE = ["slambench.reference", "slambench.reference.imap",
-             "slambench.reference.steps", "slambench.reference.frontend"]
+             "slambench.reference.camera", "slambench.reference.frontend"]
 
 
 def _loaded(mods):

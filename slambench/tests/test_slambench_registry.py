@@ -1,6 +1,8 @@
-"""Adding a configuration, a traffic mix, a cell, a metric or a kernel
-list is adding a file: the harness finds it by name and no file it had
-changes."""
+"""Adding a configuration, a traffic mix, a cell, a metric, a kernel list
+or a plain reference is adding a file: the harness finds it by name and no
+file it had changes. A configuration names its plain reference, with no
+default; the meta keys leave the system's resolved configuration as it
+is."""
 
 import hashlib
 import json
@@ -10,7 +12,7 @@ import shutil
 import pytest
 
 from slambench import registry
-from slambench.run import cell_parts
+from slambench.run import build_cell, cell_parts
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -99,3 +101,46 @@ def test_every_listed_part_has_its_file():
         assert callable(registry.metric(m["name"]).read)
     for k in ("k1", "k2"):
         assert registry.kernel_patterns(k)
+    for c in bench["configs"]:
+        ref = registry.reference(c["name"])
+        assert all(hasattr(ref, a) for a in registry.REFERENCE_API)
+
+
+# sha256 of each cell's resolved system configuration, as the harness
+# resolved it before configurations named their reference
+RESOLVED = {
+    "pointnerf_weak_room.orbit":
+        "de5c265a53fa578e25eafb290c7481f5ec5e0bc95166b6de83f0c1fd530f6a2a",
+    "imap_rgbd_room.orbit":
+        "19b04ad38866a6e9a0f5ce5fef46a28824260469507eece6ef7636cd718b8487",
+    "imap_rgbd_room.gt_camera":
+        "f46c600a678acda8f3d115d720e3f7bf6191a61847fa6a082d65f105763e6bf5",
+}
+
+
+@pytest.mark.parametrize("cell", sorted(RESOLVED))
+def test_the_resolved_configuration_is_unchanged(cell):
+    _, cfg, _ = cell_parts(cell)
+    assert "reference" not in cfg
+    assert hashlib.sha256(json.dumps(cfg, sort_keys=True).encode()
+                          ).hexdigest() == RESOLVED[cell]
+
+
+@pytest.mark.parametrize("name,error", [(None, ValueError),
+                                        ("", ValueError),
+                                        ("../imap", ValueError),
+                                        ("absent", FileNotFoundError),
+                                        ("frontend", AttributeError)])
+def test_a_cell_without_its_reference_is_refused(tree, name, error):
+    cfg = json.load(open(os.path.join(tree, "configs",
+                                      "imap_rgbd_room.json")))
+    cfg.pop("reference")
+    if name is not None:
+        cfg["reference"] = name
+    json.dump(cfg, open(os.path.join(tree, "configs", "bare_room.json"),
+                        "w"))
+    json.dump({"config": "bare_room", "traffic": "orbit", "limits": {}},
+              open(os.path.join(tree, "workloads", "bare_room.orbit.json"),
+                   "w"))
+    with pytest.raises(error):
+        build_cell("bare_room.orbit", 1, "cpu", tree)
